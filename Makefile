@@ -1,10 +1,10 @@
 # Developer targets (parity with the reference's Makefile: test / benchmark /
 # format / docs).
 
-.PHONY: test test-fast lint format bench bench-save bench-judge native clean docs docs-html weak-scaling tpu-check crossover precision compiler-scale
+.PHONY: test test-fast lint format bench bench-save bench-judge native clean docs docs-html weak-scaling chip-smoke kernel-bench precision compiler-scale
 
 test:
-	python -m pytest tests/ -q
+	python -m pytest tests/ -q -n 6
 
 # Static-analysis gate (the reference's Aqua/JET analogue,
 # test/runtests.jl:103-110): undefined names, unused imports, __all__
@@ -20,16 +20,15 @@ lint:
 format:
 	python tools/format.py
 
-# On-chip artifact: pallas-vs-scan parity + AOT export + serving smoke on the
-# real TPU; writes TPU_CHECK.json (VERDICT r1 item 7).
-tpu-check:
-	python benchmarks/tpu_check.py
+# On the GPU: the main path against float64 references (one card).
+chip-smoke:
+	python chip_smoke.py
 
-# Chain-length crossover (matmul vs scan vs pallas); writes CROSSOVER.json.
-crossover:
-	python benchmarks/crossover_bench.py
+# On the GPU: each Triton kernel against the XLA path it replaces.
+kernel-bench:
+	python benchmarks/kernel_bench.py
 
-# f32-vs-bf16 study; writes docs/precision_results.json.
+# f32-vs-bf16 accuracy study (CPU); prints the table as JSON.
 precision:
 	python benchmarks/precision_bench.py
 

@@ -1,5 +1,5 @@
-"""f32-vs-bf16 precision study: accuracy against an f64 oracle + on-chip
-throughput for the flagship sweeps (VERDICT r1 item 10 / r2 item 9).
+"""f32-vs-bf16 precision study: accuracy against an f64 oracle for the
+flagship sweeps.
 
 Accuracy (runs anywhere; oracle = float64 on CPU via `jax.enable_x64` in a
 subprocess-free local scope):
@@ -9,11 +9,10 @@ subprocess-free local scope):
   (QR square-root path) — the sqrt path is the documented answer for
   ill-conditioned chains in low precision.
 
-Throughput (meaningful on the TPU): device time per sweep in f32 vs bf16 for
-the scan and matmul paths, same serialized-fori_loop methodology as bench.py.
-
-Writes ``docs/precision_results.json`` (the committed table rendered by
-``docs/precision.md``).  Usage: python benchmarks/precision_bench.py
+Accuracy does not depend on the device, so every row runs on the CPU
+backend.  The speed of the bf16 edge is measured by ``bench.py``
+(``matmul_bf16`` rows).  Prints the table as JSON.
+Usage: python benchmarks/precision_bench.py
 """
 
 import json
@@ -57,10 +56,8 @@ def _f64_oracle_scalar(y, A, Q, H, R):
 
 
 def accuracy_tables():
-    """Accuracy rows.  Forced onto the CPU backend: the f64 oracles
-    degrade on TPU (f64 matmuls run through lower-precision passes —
-    regenerating there inflated the mv f32 rows from ~1e-6 to ~1e-2 of
-    pure oracle error), and accuracy is device-independent anyway."""
+    """Accuracy rows, forced onto the CPU backend: the f64 oracles need
+    true float64 matmuls, and accuracy is device-independent anyway."""
     import jax
 
     cpu = jax.devices("cpu")[0]
@@ -132,10 +129,9 @@ def _accuracy_tables_impl():
 
 
 def bf16_edge_accuracy(rng):
-    """Accuracy of the precision policy's MXU configuration — bf16 inputs +
+    """Accuracy of the precision policy's matmul configuration — bf16 inputs +
     bf16 affine operator with f32 accumulation — against the f64 oracle,
-    next to the all-f32 matmul path (VERDICT r3 item 2: the policy's claim
-    must be measured, not asserted).  Scalar chain + MvLGSSM d=4/d=16."""
+    next to the all-f32 matmul path.  Scalar chain + MvLGSSM d=4/d=16."""
     import jax.numpy as jnp
 
     from cortex_tpu.models import MvLGSSM
@@ -221,60 +217,13 @@ def bf16_edge_accuracy(rng):
     return out
 
 
-def throughput_table():
-    """On-chip f32 vs bf16 sweep times (scan + matmul paths)."""
-    import jax
-    import jax.numpy as jnp
-
-    import bench  # repo-root flagship bench: reuse the serialized timer
-    from cortex_tpu.models import LGSSM
-    from cortex_tpu.ops import lgssm_smooth_matmul, lgssm_smoother_operator
-
-    model = LGSSM(A=1.0, Q=1.0, H=1.0, R=1.0)
-    op = lgssm_smoother_operator(T)
-    R_ = 100_000
-    key = jax.random.PRNGKey(0)
-    out = {}
-    for dtype in ("float32", "bfloat16"):
-        y0 = jax.block_until_ready(
-            jnp.cumsum(jax.random.normal(key, (R_, T), jnp.dtype(dtype)), -1)
-        )
-        row = {}
-        row["scan_us"] = round(
-            bench._serial_sweep_time(
-                lambda y: model.smooth(y, method="scan"), y0, 100
-            )
-            * 1e6,
-            1,
-        )
-        row["matmul_us"] = round(
-            bench._serial_sweep_time(
-                lambda y: lgssm_smooth_matmul(y, operator=op), y0, 100
-            )
-            * 1e6,
-            1,
-        )
-        out[dtype] = row
-    out["replicas"] = R_
-    return out
-
-
 def main():
-    import jax
-
-    platform = jax.devices()[0].platform
     result = {
-        "platform": platform,
-        "device_kind": getattr(jax.devices()[0], "device_kind", "?"),
+        "platform": "cpu",
         "timestamp": time.strftime("%Y-%m-%dT%H:%M:%S"),
         "accuracy": accuracy_tables(),
     }
-    if platform == "tpu":
-        result["throughput"] = throughput_table()
-    out_path = REPO / "docs" / "precision_results.json"
-    out_path.write_text(json.dumps(result, indent=1))
-    print(json.dumps(result))
-    print(f"-> {out_path}", file=sys.stderr)
+    print(json.dumps(result, indent=1))
 
 
 if __name__ == "__main__":

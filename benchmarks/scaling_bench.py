@@ -2,8 +2,8 @@
 "≥90% linear scaling 1→4 hosts" methodology).
 
 Shards the 10k-replica LGSSM smoothing sweep over a ``replica`` mesh of
-1, 2, 4, ... devices and reports sweeps/s + parallel efficiency.  On real
-multi-host TPU, run after ``cortex_tpu.parallel.init_distributed()``; on a
+1, 2, 4, ... devices and reports sweeps/s + parallel efficiency.  On
+several GPU hosts, run after ``cortex_tpu.parallel.init_distributed()``; on a
 single CPU host, set::
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8

@@ -1,4 +1,4 @@
-"""Weak-scaling curves for every parallel path (VERDICT r3 item 4).
+"""Weak-scaling curves for every parallel path.
 
 Fixed work PER DEVICE (replicas x chain steps per device constant), device
 counts 1/2/4/8, for:
@@ -162,7 +162,7 @@ def main():
         elif n <= ncores:
             row["collective_fraction"] = round(max(0.0, 1 - t_local / dt), 3)
         rows.append(row)
-        # The per-device cost VERDICT r3 item 1 asked for: wall time of the
+        # The per-device cost: wall time of the
         # whole sharded sweep IS the per-device cost (devices run in
         # lockstep; each holds Tmv steps x Rmv replicas).
     paths["time_sharded_mv_d4"] = {
@@ -174,7 +174,7 @@ def main():
     }
 
     # -- pipelined: T=256 per stage, 512-replica batch ---------------------
-    # TWO microbatching policies per device count (VERDICT r4 item 9):
+    # TWO microbatching policies per device count:
     # M = S (the r3 default whose bubble (S-1)/(2S-1) grows toward 1/2)
     # and M = 4S (bubble held < 0.2).  The bubble model's predicted
     # slowdown (S+M-1)/M rides along so the artifact itself shows which
@@ -236,8 +236,8 @@ def main():
     # divides that backend curve out: 1.0 = the path scales exactly like
     # the zero-collective path; the excess is the path's OWN
     # collective/bubble overhead — the number that transfers to real
-    # multi-chip hardware, where XLA:TPU partitions run concurrently by
-    # construction.
+    # multi-device hardware, where each device runs its partition
+    # concurrently by construction.
     repl_curve = {
         r["devices"]: r["wall_s"] for r in paths["replica_sharded_lgssm"]["rows"]
     }

@@ -1,7 +1,8 @@
-"""cortex_tpu — a TPU-native reactive message-passing Bayesian inference framework.
+"""cortex_tpu — a compiled reactive message-passing Bayesian inference framework.
 
 A from-scratch re-design of the capabilities of ReactiveBayes/Cortex.jl for
-TPU hardware (JAX/XLA/Pallas/pjit):
+accelerators through JAX (XLA, Pallas kernels, sharded meshes); it runs on
+an NVIDIA GPU:
 
 - :mod:`cortex_tpu.core` — the reactive signal substrate, factor-graph model
   spec, dependency resolvers (BP / mean-field / structured VMP), and the

@@ -573,7 +573,7 @@ class CompiledInference:
         With ``steady_state=True`` the first sweep runs the dataflow-ordered
         schedule (warm start: every signal gets a value in a valid order) and
         subsequent sweeps run the maximally-batched block-Gauss-Seidel
-        schedule (:meth:`steady_state_phases`) — the preferred mode on TPU
+        schedule (:meth:`steady_state_phases`) — the preferred mode on an accelerator
         for chain-heavy graphs whose dataflow schedule has many small phases.
 
         The per-sweep program is pure, so wrapping this call in ``jax.jit``

@@ -3,7 +3,7 @@
 The reference discovers its schedule dynamically — pending bits propagate and
 ``process_dependencies!`` walks them per sweep (``src/inference_engine.jl:
 512-525``; its own ``scan_inference_request`` at ``:540-546`` proves the
-schedule can be extracted as data).  On TPU the graph is fixed after resolver
+schedule can be extracted as data).  Compiled, the graph is fixed after resolver
 wiring (``src/inference_engine.jl:84-86``), so we extract the *whole* schedule
 once:
 

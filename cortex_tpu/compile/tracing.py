@@ -9,7 +9,7 @@ snapshots are impossible there (SURVEY.md §5).  Two complementary tools:
   (optionally) value snapshots — the compiled analogue of the dynamic
   engine's Request→Round→Execution tracer,
 - :func:`profile_run` — wraps a call in a ``jax.profiler`` trace for real
-  TPU timelines.
+  device timelines.
 """
 
 from __future__ import annotations

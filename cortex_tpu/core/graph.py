@@ -1,6 +1,6 @@
 """Default graph-storage backend: a mutable bipartite factor graph.
 
-The TPU-native analogue of the reference's ``BipartiteFactorGraphs.jl`` backend
+The analogue of the reference's ``BipartiteFactorGraphs.jl`` backend
 wired through ``ext/BipartiteFactorGraphsExt/BipartiteFactorGraphsExt.jl:16-50``.
 Variables and factors share a single integer ID space (IDs are unique across
 both), adjacency is stored as per-node ID lists in insertion order, and each

@@ -25,7 +25,7 @@ Semantics mirror the reference implementation (``/root/reference/src/signal.jl``
   into intermediate dependencies and optional retry
   (reference ``src/signal.jl:429-490``).
 
-This dynamic engine is the debugging/parity path.  The TPU execution path
+This dynamic engine is the debugging/parity path.  The compiled execution path
 (:mod:`cortex_tpu.compile`) compiles the dependency DAG that resolvers build on
 top of these signals into a static, type-batched XLA program.
 """

@@ -1,6 +1,6 @@
 """Exponential-family message algebra as batched JAX pytrees.
 
-The TPU analogue of the reference's conjugate test algebra
+The batched analogue of the reference's conjugate test algebra
 (``/root/reference/test/runtests.jl:17-101``): distributions are
 struct-of-arrays pytrees closed under ``*`` (density product = natural-
 parameter addition) and ``/`` (cavity quotient), with moments, log

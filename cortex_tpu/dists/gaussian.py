@@ -121,10 +121,9 @@ def from_mean_precision(mean, precision) -> Gaussian:
 def _spd_solve_logdet(M, B):
     """Batched ``solve(M, B)`` + ``log det M`` for small SPD ``M`` via
     pivotless Gauss-Jordan — replacing the LU/getrf custom calls that
-    ``jnp.linalg.solve``/``inv``/``slogdet`` lower to.  Batched tiny-matrix
-    custom calls dominated the compiled structured-VMP sweep on TPU
-    (measured 680 ms/iter at 10k replicas of 2×2 inverses; the closed
-    elimination removes them).  Pivotless elimination is PROVABLY valid
+    ``jnp.linalg.solve``/``inv``/``slogdet`` lower to: a batched tiny-matrix
+    custom call per step of the compiled structured-VMP sweep, which the
+    closed elimination removes.  Pivotless elimination is PROVABLY valid
     here: an SPD matrix has strictly positive leading principal minors, so
     every pivot is nonzero.  Falls back to LAPACK lowering above d = 32
     (same threshold as ops/chains_mv)."""

@@ -1,4 +1,4 @@
-"""Model zoo: the reference's example families, TPU-first."""
+"""Model zoo: the reference's example families, accelerator-first."""
 
 from .ar import ARPosterior, BayesianAR, companion_matrix, latent_ar_smooth
 from .bocpd import BOCPD, BOCPDResult, BernoulliBeta, GaussianNIG

@@ -7,7 +7,7 @@ machinery BOCPD composes online: at every step the *run-length* posterior
 p(r_t | y_1:t) is propagated with conjugate predictive likelihoods and a
 constant hazard.
 
-TPU-native design: the run-length axis is **statically truncated** to
+Design: the run-length axis is **statically truncated** to
 ``r_max`` so the whole filter is one ``lax.scan`` over time with
 ``(..., r_max)``-shaped state — per-step work is a handful of fused
 elementwise ops plus one ``logsumexp``, batching over replicas in the

@@ -1,9 +1,9 @@
-"""Exact Gaussian-process regression — the MXU-bound model family.
+"""Exact Gaussian-process regression — the matmul-bound model family.
 
 Beyond the reference's scope (its models are factor graphs of parametric
 conjugate nodes) but a staple of the Bayesian toolbox this framework serves;
-included because on TPU the exact-GP linear algebra (n×n kernel Cholesky,
-batched triangular solves) maps straight onto the MXU, and the log marginal
+included because the exact-GP linear algebra (n×n kernel Cholesky, batched
+triangular solves) maps straight onto matmul units, and the log marginal
 likelihood is differentiable end-to-end so hyperparameters fit by the same
 Adam/``lax.scan`` loop as everything else (`models/fit.py` style).
 

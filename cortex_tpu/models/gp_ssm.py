@@ -9,7 +9,7 @@ the framework applies everywhere (chain factor graph → scan; cf. the
 reference's chain models, ``/root/reference/test/inference_engine_tests.jl:379-488``):
 the GP *is* a chain factor graph once its kernel is Markovian.
 
-TPU-native notes: all per-step quantities are closed-form (no ``expm``:
+Notes: all per-step quantities are closed-form (no ``expm``:
 the Matérn transition matrices have analytic entries), stacked as
 ``(T, d, d)`` arrays and consumed by one ``lax.scan``; irregular sampling
 is free (per-step Δt).  The log marginal likelihood is differentiable in

@@ -8,7 +8,7 @@ predictive class probability integrates the latent Gaussian through the
 probit exactly.  With a linear kernel this reduces to Bayesian linear probit
 classification — pinned against `EPClassifier` in the tests.
 
-All hot steps are batched matmuls + one Cholesky per iteration (MXU-bound);
+All hot steps are batched matmuls + one Cholesky per iteration (matmul-bound);
 the EP loop is a ``lax.scan`` under ``jit``.
 """
 

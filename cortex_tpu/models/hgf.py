@@ -139,6 +139,7 @@ class HGF:
         state: HGFState = None,
         method: str = "scan",
         tracks: tuple = None,
+        interpret: bool = False,
     ):
         """Filter a series ``u`` of shape ``(..., T)``; returns the final
         state and an :class:`HGFTrajectory` of the requested tracks
@@ -151,11 +152,13 @@ class HGF:
 
         ``method="scan"``: one ``lax.scan`` (any batch shape, any initial
         state, traced parameters allowed).  ``method="pallas"``: the fused
-        VMEM-resident kernel (``ops.pallas_hgf``) — the whole trajectory
-        per replica tile with no intermediate HBM traffic; requires ``u``
-        of shape ``(R, T)``, the default zero-initialized state, and
-        CONCRETE (non-traced) model parameters — the kernel specializes on
-        them; use ``method="scan"`` inside parameter-gradient workflows."""
+        GPU kernel (``ops.pallas_hgf``) — the whole trajectory of a block
+        of replicas in one program, with no intermediate device-memory
+        traffic; requires ``u`` of shape ``(R, T)``, the default
+        zero-initialized state, and CONCRETE (non-traced) model parameters
+        — the kernel specializes on them; use ``method="scan"`` inside
+        parameter-gradient workflows.  ``interpret`` runs that kernel in
+        the Pallas interpreter (off a GPU it must be passed)."""
         from ..ops.pallas_hgf import ALL_TRACKS
 
         u = jnp.asarray(u)
@@ -185,6 +188,7 @@ class HGF:
                 min_pi2=self.min_pi2,
                 max_mu2_step=self.max_mu2_step,
                 tracks=tracks,
+                interpret=interpret,
             )
             return HGFState(*finals), to_traj(values)
         if method != "scan":

@@ -28,6 +28,10 @@ from jax.scipy.special import digamma, gammaln
 from ..dists import Dirichlet
 from ..ops.hmm import HMMPosterior, hmm_forward_backward, hmm_viterbi
 
+# The one-hot contractions below are sums of probabilities over every step:
+# a GPU's default (TF32) matmul moves the Dirichlet counts by ~7e-4.
+_HIGHEST = lax.Precision.HIGHEST
+
 __all__ = ["HMM", "HMMVMPState", "HMMVMPResult"]
 
 
@@ -73,13 +77,19 @@ class HMM:
 
     # -- sum-product smoothing with known parameters -----------------------
     def smooth(
-        self, log_lik: jax.Array, log_A: jax.Array, method: str = "scan"
+        self,
+        log_lik: jax.Array,
+        log_A: jax.Array,
+        method: str = "scan",
+        interpret: bool = False,
     ) -> HMMPosterior:
         """Forward-backward state marginals given per-step log-likelihoods.
 
-        ``method="pallas"`` routes through the fused scaled kernel (requires
-        ``log_lik`` of shape ``(R, T, K)``); results come back in the same
-        log-space :class:`HMMPosterior` container.
+        ``method="pallas"`` routes through the fused scaled GPU kernel
+        (requires ``log_lik`` of shape ``(R, T, K)``); results come back in
+        the same log-space :class:`HMMPosterior` container.  ``interpret``
+        runs that kernel in the Pallas interpreter (off a GPU it must be
+        passed).
         """
         if method == "pallas":
             from ..ops.pallas_hmm import hmm_forward_backward_counts_pallas
@@ -89,7 +99,8 @@ class HMM:
                     "method='pallas' requires log_lik of shape (R, T, K)"
                 )
             out = hmm_forward_backward_counts_pallas(
-                jnp.exp(log_lik), jnp.exp(log_A), jnp.exp(self.log_pi)
+                jnp.exp(log_lik), jnp.exp(log_A), jnp.exp(self.log_pi),
+                interpret=interpret,
             )
             tiny = jnp.asarray(1e-30, log_lik.dtype)
             return HMMPosterior(
@@ -113,6 +124,7 @@ class HMM:
         init_state: Optional[HMMVMPState] = None,
         method: str = "scan",
         pooled: bool = False,
+        interpret: bool = False,
     ) -> HMMVMPResult:
         """Variational EM with Dirichlet posteriors over the transition rows
         and the categorical emission rows.
@@ -130,9 +142,11 @@ class HMM:
         own posterior.
 
         ``method``: "scan" (log-space forward-backward) or "pallas" (the
-        fused scaled kernel emitting marginals + pairwise counts;
+        fused scaled GPU kernel emitting marginals + pairwise counts;
         requires ``pooled=True`` with obs of shape ``(R, T)``, since the
-        kernel holds one shared transition matrix in VMEM).
+        kernel holds one shared transition matrix).  ``interpret`` runs
+        that kernel in the Pallas interpreter (off a GPU it must be
+        passed).
         """
         obs = jnp.asarray(obs)
         K, M = self.K, n_symbols
@@ -166,7 +180,8 @@ class HMM:
                 from ..ops.pallas_hmm import hmm_forward_backward_counts_pallas
 
                 out = hmm_forward_backward_counts_pallas(
-                    jnp.exp(log_lik), jnp.exp(log_A), jnp.exp(self.log_pi)
+                    jnp.exp(log_lik), jnp.exp(log_A), jnp.exp(self.log_pi),
+                    interpret=interpret,
                 )
                 return out.gamma, out.xi_sum, out.log_evidence
             post = hmm_forward_backward(log_lik, log_A, self.log_pi)
@@ -177,9 +192,13 @@ class HMM:
             log_A = Dirichlet(state.trans_alpha).mean_log()
             log_B = Dirichlet(state.emis_alpha).mean_log()
             # Per-step log-likelihoods under E[log B].
-            log_lik = jnp.einsum("...tm,...km->...tk", onehot, log_B)
+            log_lik = jnp.einsum(
+                "...tm,...km->...tk", onehot, log_B, precision=_HIGHEST
+            )
             gamma, trans_counts, log_evidence = e_step(log_lik, log_A)
-            emis_counts = jnp.einsum("...tk,...tm->...km", gamma, onehot)
+            emis_counts = jnp.einsum(
+                "...tk,...tm->...km", gamma, onehot, precision=_HIGHEST
+            )
             if pooled and obs.ndim > 1:
                 # Sum expected statistics across replicas (one shared model).
                 reduce_axes = tuple(range(obs.ndim - 1))
@@ -203,6 +222,8 @@ class HMM:
         # Final smoothing pass under the final posterior.
         log_A = Dirichlet(final_state.trans_alpha).mean_log()
         log_B = Dirichlet(final_state.emis_alpha).mean_log()
-        log_lik = jnp.einsum("...tm,...km->...tk", onehot, log_B)
+        log_lik = jnp.einsum(
+                "...tm,...km->...tk", onehot, log_B, precision=_HIGHEST
+            )
         post = hmm_forward_backward(log_lik, log_A, self.log_pi)
         return HMMVMPResult(final_state, post, elbos[-1])

@@ -1,6 +1,6 @@
 """Linear Gaussian state-space model — the flagship benchmark family.
 
-The TPU-native counterpart of the reference's chain SSM example
+The compiled counterpart of the reference's chain SSM example
 (``/root/reference/test/inference_engine_tests.jl:379-488``): BP smoothing
 whose marginals are Kalman/RTS-equivalent.  Replicas (independent chains over
 sharded datasets) batch along leading axes; a 10k-replica smoothing sweep is a
@@ -69,7 +69,7 @@ class LGSSM:
         if method == "assoc":
             return lgssm_smooth_assoc(y, self.A, self.Q, self.H, self.R, prior)
         if method == "matmul":
-            # MXU lowering: the smoother is affine in y (dense data only).
+            # Matmul lowering: the smoother is affine in y (dense data only).
             return lgssm_smooth_matmul(y, self.A, self.Q, self.H, self.R, prior)
         raise ValueError(f"Unknown method: {method!r}")
 

@@ -73,12 +73,13 @@ class MvLGSSM:
     def auto_method(self) -> str:
         """The smoothing path :meth:`smooth` selects for ``method="auto"``.
 
-        Shape-dependent (VERDICT r4 item 3): the blocked two-level scan's
-        lane-major combine does d³ per-lane VPU multiply-adds and wins at
-        small d but loses to the sequential scan past d≈8 (measured at d=4
-        vs d=16, BENCH_DETAIL.json ``ladder.mv_lgssm``); the crossover is
-        a property of the element algebra's d³-vs-d² work ratio, not of
-        the bench shape."""
+        Shape-dependent: the blocked two-level scan's lane-major combine
+        does d³ elementwise multiply-adds per replica, the sequential scan
+        d² per step.  On an H100 at (R=1024, T=100) the blocked path ran
+        5.4×, 4.5×, 2.2× and 1.4× faster than the scan at d=2, 4, 8 and 12,
+        but its compile time grew from 11 s to 47 s (the scan's: 3-9 s) and
+        at d=16 compiling it crashed the process; so "blocked" is chosen up
+        to d=8 (PERF.md, Findings)."""
         return "blocked" if self.dim <= 8 else "scan"
 
     def smooth(
@@ -87,24 +88,23 @@ class MvLGSSM:
         """Posterior marginals; ``y``: ``(..., T, m)``.
 
         ``method="auto"`` (default): pick by state dimension — "blocked"
-        for d ≤ 8, "scan" above (:meth:`auto_method`; measured numbers for
-        both shapes in BENCH_DETAIL.json ``ladder.mv_lgssm``).
+        for d ≤ 8, "scan" above (:meth:`auto_method`).
         ``method="blocked"``: two-level blocked scan — block-sequential
         folds + a B-element cross-block combine (the single-chip form of
         the time-sharded scheme; fastest at small d).
-        ``method="scan"``: sequential filter + RTS scans (fastest at
-        d ≳ 8, where the lane-major combine's d³ per-lane work overtakes
-        the sequential recursion's batched d² steps).
+        ``method="scan"``: sequential filter + RTS scans (the choice above
+        d = 8, where the lane-major combine's d³ work and compile time
+        overtake the sequential recursion's batched d² steps).
         ``method="assoc"``: flat time-parallel associative scan —
-        O(log T) depth but O(T log T) work; kept for reference
-        (measured 65× slower than "scan" single-chip), prefer "blocked".
-        ``method="matmul"``: precomputed affine-operator MXU matmul
+        O(log T) depth but O(T log T) work; kept for reference, prefer
+        "blocked".
+        ``method="matmul"``: precomputed affine-operator matmul
         (dense data only).
         ``method="sqrt"``: sequential QR-factored square-root smoother
         (:func:`cortex_tpu.ops.sqrt_kalman.sqrt_lgssm_smooth`) — the
         numerically robust path for ill-conditioned chains in f32/bf16.
 
-        ``missing`` controls NaN granularity (VERDICT r4 item 4):
+        ``missing`` controls NaN granularity:
         ``"component"`` masks individual observation components (a NaN in
         one component keeps the others' information — the granularity the
         reference's per-signal observations give for free,

@@ -9,7 +9,7 @@ Generic over the model: the user supplies ``transition(key, x) -> x'`` and
 ``log_likelihood(y, x) -> logw`` (both vectorized over the particle axis).
 Resampling is systematic (low-variance), implemented as an O(N)
 scatter-max + cummax inversion of the weight CDF — fully jittable and
-TPU-friendly (see :func:`systematic_resample`).
+accelerator-friendly (see :func:`systematic_resample`).
 """
 
 from __future__ import annotations
@@ -35,12 +35,12 @@ def systematic_resample(key: jax.Array, log_weights: jax.Array) -> jax.Array:
     """Systematic (low-variance) resampling: returns ``(N,)`` int32 indices.
 
     One uniform offset per sweep; stratified positions ``(j + u)/N`` are
-    inverted through the weight CDF.  TPU-shaped O(N) inversion: because the
+    inverted through the weight CDF.  Batched O(N) inversion: because the
     positions are already sorted, particle ``i``'s children occupy output
     slots ``[C_{i-1}, C_i)`` with ``C_i = ceil(N·cdf_i − u)`` — one
     scatter-max of segment starts followed by a ``cummax`` recovers the
-    owner of every slot (a ``searchsorted`` here lowers to ~30× slower code
-    under vmap on TPU).
+    owner of every slot (a ``searchsorted`` under vmap lowers to a much
+    slower loop).
     """
     n = log_weights.shape[0]
     w = jax.nn.softmax(log_weights)

@@ -6,9 +6,9 @@ family (one Gaussian latent per datum, linear-Gaussian likelihood), with
 EM updates that are exactly closed-form Gaussian message products
 (cf. the reference's Gaussian algebra, ``/root/reference/test/runtests.jl:40-84``).
 
-TPU-native design: everything is a dense matmul.  The E-step posterior
+Design: everything is a dense matmul.  The E-step posterior
 ``M = WᵀW + σ²I`` is a tiny q×q solve; the heavy ops are ``Yᵀ(YW...)``
-Gram-style products of shape (d, n)×(n, q) — straight onto the MXU in
+Gram-style products of shape (d, n)×(n, q) — straight onto the matmul units in
 bfloat16/float32 with no reshaping.  The EM loop is a ``lax.fori_loop`` of
 fused matmuls: no host round-trips, O(ndq) per iteration.
 
@@ -149,7 +149,7 @@ class PPCA:
             # E-step in q-space: M = WᵀW + σ²I (q×q).
             M = W.T @ W + sigma2 * eye_q
             Minv = jnp.linalg.inv(M)
-            # Sufficient statistics (all MXU matmuls):
+            # Sufficient statistics (all matmuls):
             #   S_yz = Ycᵀ E[Z]   (d, q);  S_zz = Σ E[z zᵀ]  (q, q)
             YW = Yc @ W  # (n, q)
             EZ = YW @ Minv  # (n, q)

@@ -7,7 +7,7 @@ analytically, so Monte-Carlo variance lives only on the K-ary regime chain.
 With K=1 there is no randomness at all and the log-evidence estimate equals
 the exact Kalman evidence (tested).
 
-TPU shape: particles are just another batch axis; one ``lax.scan`` over time
+Shape: particles are just another batch axis; one ``lax.scan`` over time
 carries ``(N,)`` regime indices + Kalman moments + log-weights, with adaptive
 systematic resampling (shared with :mod:`cortex_tpu.models.particle`).
 Per-regime parameters are gathered with ``A[s]``-style indexing — K tiny

@@ -3,7 +3,7 @@
 Extends the exact-GP family (`cortex_tpu/models/gp.py`) past the O(n³)
 Cholesky wall with m ≪ n inducing points: the collapsed variational bound
 (Titsias 2009) costs O(n m²) — all batched matmuls and m×m triangular
-factors, exactly the shapes the MXU wants — and is a *lower bound* on the
+factors, exactly the shapes matmul units want — and is a *lower bound* on the
 exact log marginal likelihood, recovering it when the inducing set equals
 the training inputs.  Inducing locations are ordinary differentiable
 parameters, so they fit by the same Adam/`lax.scan` loop as every other

@@ -12,7 +12,7 @@ standard framework answer is assumed-density filtering; we implement the
 regime probabilities, moment-match the regime mixture at every step.  This
 is the switching analogue of the EKF/UKF projection step — and like
 everything here it is one ``lax.scan`` whose step vectorizes over the K
-regimes and any number of replicas at once (pure VPU elementwise math).
+regimes and any number of replicas at once (pure elementwise math).
 
 K = 1 reduces to the exact Kalman filter (tested against
 :class:`cortex_tpu.models.LGSSM`).

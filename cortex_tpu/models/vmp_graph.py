@@ -9,7 +9,7 @@ rule groups.  This is the model that exercises the weak-edge/steady-state
 machinery of the compiled path (the LGSSM chain exercises pure BP).
 
 Promoted out of the test tree so the benchmark of record (``bench.py``) can
-put on-chip numbers on the compiled VMP path (VERDICT r3 item 5);
+put on-chip numbers on the compiled VMP path;
 ``tests/test_compiled_vmp.py`` imports the same definitions.
 """
 

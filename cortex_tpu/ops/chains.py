@@ -3,13 +3,12 @@
 The reference computes LGSSM smoothing by dynamic message passing over a
 chain factor graph (``/root/reference/test/inference_engine_tests.jl:379-488``):
 forward/backward sweeps of Gaussian messages, marginal = product of the
-inbound messages.  On TPU the chain structure is static, so the whole sweep
+inbound messages.  Compiled, the chain structure is static, so the whole sweep
 compiles to scans:
 
 - :func:`lgssm_smooth_scan` — ``lax.scan`` forward + backward message
   recursions, *batched over replicas* in the leading axes.  One scan step
-  updates every replica's message at once; with 10k replicas the VPU stays
-  saturated while the time axis is sequential.
+  updates every replica's message at once; the time axis is sequential.
 - :func:`lgssm_smooth_assoc` — time-parallel formulation via
   ``lax.associative_scan`` (the parallel Kalman filter/smoother of Särkkä &
   García-Fernández, 2020): O(log T) depth, for long chains / few replicas.
@@ -185,7 +184,7 @@ def _info_form_smooth(xi_obs, w_obs, A, Q, prior):
     return ChainMarginals(mean, variance)
 
 
-# -- MXU (matmul) formulation ------------------------------------------------
+# -- Matmul formulation -------------------------------------------------------
 #
 # The smoother is an *affine* operator in the observations: the marginal
 # precisions w_m depend only on (A, Q, H, R, T) — not on the data — and the
@@ -193,10 +192,10 @@ def _info_form_smooth(xi_obs, w_obs, A, Q, prior):
 #
 #     mean = y @ S + c,     variance = v   (one data-independent row)
 #
-# with S the (T, T) smoother impulse-response matrix.  This is the TPU-native
-# lowering of the reference's whole chain sweep
+# with S the (T, T) smoother impulse-response matrix.  This is the dense
+# linear-algebra lowering of the reference's whole chain sweep
 # (/root/reference/src/inference_engine.jl:559-632 over the chain of
-# test/inference_engine_tests.jl:379-488): a single MXU matmul replaces
+# test/inference_engine_tests.jl:379-488): a single matmul replaces
 # 3T-2 per-signal message updates per replica, with zero intermediate HBM
 # traffic and no transposes.  FLOPs are 2·R·T² — at T=100 still firmly
 # bandwidth-bound, i.e. speed-of-light for this memory footprint.
@@ -236,7 +235,7 @@ def lgssm_smooth_matmul(
     prior: Optional[Tuple[jax.Array, jax.Array]] = None,
     operator: Optional[Tuple[jax.Array, jax.Array, jax.Array]] = None,
 ) -> ChainMarginals:
-    """BP smoothing as ONE MXU matmul: ``mean = y @ S + c``.
+    """BP smoothing as ONE matmul: ``mean = y @ S + c``.
 
     Identical marginals to :func:`lgssm_smooth_scan` (up to matmul rounding;
     computed at ``Precision.HIGHEST``).  Requires dense observations — a NaN
@@ -325,7 +324,7 @@ def lgssm_smooth_assoc(
     """Time-parallel BP smoothing via ``lax.associative_scan``.
 
     Same inputs/outputs as :func:`lgssm_smooth_scan`; O(log T) depth on the
-    time axis — the TPU formulation of the reference's sequential
+    time axis — the time-parallel formulation of the reference's sequential
     forward/backward sweep ordering (``src/inference_engine.jl:575-607``).
     """
     y = jnp.asarray(y)

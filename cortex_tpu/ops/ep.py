@@ -4,12 +4,12 @@ Completes the framework's algorithm families alongside BP, VMP, EM, particle
 and projected-Gaussian (EKF/UKF) inference.  The reference's processor
 interface admits EP rule sets (its `compute_message_to_*` hooks are
 rule-agnostic, `/root/reference/src/inference_engine.jl:331-477`) but ships
-none; here EP is first-class and TPU-shaped:
+none; here EP is first-class and batched:
 
 - **Parallel EP**: every site's cavity/tilt/update is computed at once per
   iteration (one gather → moment-match → scatter), not site-by-site as in
   textbook sequential EP.  The per-iteration cost is one ``d×d`` solve plus
-  vectorized scalar moment matching — MXU matmuls + VPU elementwise.
+  vectorized scalar moment matching — matmuls + elementwise ops.
 - **Moment matching** is either closed-form (probit) or Gauss–Hermite
   quadrature of a user-supplied scalar log-likelihood — the same
   "user supplies the rule algebra" stance as the reference.

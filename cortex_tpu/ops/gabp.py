@@ -4,7 +4,7 @@ The reference's BP resolver wires message dependencies for *any* bipartite
 factor graph, including cyclic ones — its engine just keeps sweeping until
 quiescence (`/root/reference/src/dependencies.jl:17-126`,
 `src/inference_engine.jl:575-607`; cyclic signal graphs are exercised in
-`test/signal_tests.jl:467-507`).  This module is the TPU-native execution of
+`test/signal_tests.jl:467-507`).  This module is the batched execution of
 that loop for the Gaussian case: **synchronous (Jacobi) GaBP** where every
 directed edge's message updates at once per iteration —
 
@@ -126,9 +126,8 @@ def gabp_grid_solve(
     """Grid-specialized GaBP: identical marginals to :func:`gabp_solve` on a
     4-neighbor grid with uniform coupling, but *stencil-shaped* — messages
     live in four dense ``(H, W)`` direction planes updated with shifted
-    slices, so one iteration is pure elementwise VPU math with zero
-    gather/scatter (measured 3× over the edge-list path on a v5e for
-    256×64×64 image grids, 15B messages/s).
+    slices, so one iteration is pure elementwise math with zero
+    gather/scatter.
 
     ``lam_diag``: ``(H, W)`` node precisions; ``eta``: ``(..., H, W)``
     (leading replica axes); ``lam_off``: scalar coupling Λ_ij of every edge.

@@ -8,7 +8,7 @@ sampling machinery at all (its rules are closed-form,
 density is already a pure differentiable JAX function, so HMC needs nothing
 but ``jax.grad``.
 
-TPU shape: one chain is a ``lax.scan`` of leapfrog integrations (pure
+Shape: one chain is a ``lax.scan`` of leapfrog integrations (pure
 elementwise math + the user's log-density, typically matmul-bound); many
 chains are one ``vmap`` — run 64–1024 chains per chip and spend wall-clock
 on independent mixing instead of serial chain length.  Warmup adapts the

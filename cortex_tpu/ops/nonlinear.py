@@ -7,7 +7,7 @@ standard framework answer is *projected* Gaussian message passing — linearize
 (EKF) or moment-match through sigma points (UKF) — which keeps the same
 forward/backward chain sweep structure the reference executes dynamically.
 
-TPU-native design choices:
+Design choices:
 
 - Linearization Jacobians come from ``jax.jacfwd`` on the user's ``f``/``h``
   — no hand-derived derivatives (impossible in the reference, whose rules are

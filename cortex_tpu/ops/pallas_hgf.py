@@ -1,28 +1,16 @@
-"""Fused Pallas kernel for streaming HGF filtering.
+"""Fused Pallas kernel for streaming HGF filtering (Triton route).
 
 The HGF update (models/hgf.py::HGF.step, Mathys et al. 2011) is purely
-elementwise per replica, so ``lax.scan`` over T leaves the chip
-launch-latency-bound: T tiny VPU steps each touching (R,) rows in HBM
-(measured 6.1 ms per (65536, 256) sweep — 8% of HBM peak).  This kernel
-runs the whole trajectory per replica tile inside VMEM: one grid step
-loads a ``(tile, T)`` observation block, relayouts it time-major, runs the
-T-step recursion with the state resident in registers, and writes back the
-final state plus only the REQUESTED trajectory tracks — HBM traffic is
-exactly the input read plus the tracks the caller will actually consume
-(filtering-only callers pay 1+k buffers, not 1+5; VERDICT r3 item 6).
+elementwise per replica, so ``lax.scan`` over T launches T small kernels,
+each touching ``(R,)`` rows in device memory.  This kernel runs the whole
+trajectory of a block of replicas in one program: the four-number state
+stays in registers for all T steps, and the program writes the final state
+plus only the REQUESTED trajectory tracks — traffic is the input read plus
+the tracks the caller will consume (filtering-only callers pay for the
+input alone).
 
 Same guard semantics as the model (clipped log-volatility, floored level-2
-precision, capped level-2 step).  Falls back to interpreter mode off-TPU.
-
-All configs default to a SUBLANE-MAJOR fast path (``_hgf_filter_sublane``):
-the input is relaid out XLA-side to ``(T*8, C)`` so every recursion step
-operates on an (8, C) full-vreg block instead of a (1, tile) single-sublane
-row (~1/8 ALU occupancy), tracks write their step rows directly (no
-transpose scratches), and each track pays one XLA inverse transpose on the
-way out — measured ~1.5× the row-major kernel at the bench shape for both
-the filtering-only and all-5-track configs, with the step compute at the
-all-parallel compute floor.  The row-major kernel remains for explicit
-``tile=`` callers and very long T.
+precision, capped level-2 step).
 """
 
 from __future__ import annotations
@@ -33,317 +21,107 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from ._triton import replica_tile, resolve_interpret
 
 __all__ = ["ALL_TRACKS", "hgf_filter_pallas"]
 
 ALL_TRACKS = ("mu1", "pi1", "mu2", "pi2", "delta1")
 
-# VMEM budget for one grid step's buffers.  Per tile: the (tile, T) input +
-# its (T, tile) time-major scratch + one (tile, T) output and one (T, tile)
-# scratch per requested track (finals are (tile, 1) — negligible).
-VMEM_BUDGET_BYTES = 12 * 1024 * 1024
 
+def _hgf_kernel(u_ref, *refs, tracks, time_major, kappa, omega, theta, pi_u,
+                max_log_nu, min_pi2, max_mu2_step):
+    """One block of replicas.  ``u_ref`` and the track outputs are
+    ``(tile, T)`` (``(T, tile)`` when ``time_major``); ``refs`` = the four
+    ``(tile,)`` final-state outputs (mu1, pi1, mu2, pi2), then one output
+    per requested track."""
+    fin_refs, track_refs = refs[:4], refs[4:]
+    T = u_ref.shape[0 if time_major else 1]
 
-def _hgf_kernel(
-    u_ref,
-    *refs,
-    tracks,
-    track_dtype,
-    kappa,
-    omega,
-    theta,
-    pi_u,
-    max_log_nu,
-    min_pi2,
-    max_mu2_step,
-):
-    """One replica tile: natural (tile, T) in/out, time-major scratch.
+    def get(t):
+        return u_ref[t, :] if time_major else u_ref[:, t]
 
-    ``refs`` = the (tile, 8) final-state output (columns mu1, pi1, mu2,
-    pi2, then zero padding), then ``len(tracks)`` track outputs, then the
-    time-major ``ut`` scratch, then ``len(tracks)`` track scratches."""
-    k = len(tracks)
-    fin_ref = refs[0]
-    track_refs = refs[1 : 1 + k]
-    ut_ref = refs[1 + k]
-    scratches = refs[2 + k :]
-    T = ut_ref.shape[0]
-    ut_ref[...] = u_ref[...].T
-
-    # Derive the initial carry from loaded data so Mosaic materializes it:
-    # a replicated-constant carry layout cannot be reconciled with the
-    # loop body's materialized outputs (observed "Invalid relayout" fault).
-    row0 = ut_ref[pl.ds(0, 1), :] * 0.0
-    ones = row0 + 1.0
+    def put(ref, t, v):
+        v = v.astype(ref.dtype)
+        if time_major:
+            ref[t, :] = v
+        else:
+            ref[:, t] = v
 
     def step(t, carry):
         mu1, pi1, mu2, pi2 = carry
-        u = ut_ref[pl.ds(t, 1), :]
+        u = get(t)
         log_nu = jnp.clip(kappa * mu2 + omega, -max_log_nu, max_log_nu)
         nu = jnp.exp(log_nu)
         pihat1 = 1.0 / (1.0 / pi1 + nu)
         pi1_new = pihat1 + pi_u
         mu1_new = mu1 + (pi_u / pi1_new) * (u - mu1)
-        delta1 = (1.0 / pi1_new + (mu1_new - mu1) ** 2) * pihat1 - 1.0
+        d = mu1_new - mu1
+        delta1 = (1.0 / pi1_new + d * d) * pihat1 - 1.0
         pihat2 = 1.0 / (1.0 / pi2 + theta)
         w1 = nu * pihat1
-        pi2_new = pihat2 + 0.5 * kappa**2 * w1 * (
+        pi2_new = pihat2 + 0.5 * kappa * kappa * w1 * (
             w1 + (2.0 * w1 - 1.0) * delta1
         )
         pi2_new = jnp.maximum(pi2_new, min_pi2)
         mu2_step = jnp.clip(
-            0.5 * kappa * (w1 / pi2_new) * delta1,
-            -max_mu2_step,
-            max_mu2_step,
+            0.5 * kappa * (w1 / pi2_new) * delta1, -max_mu2_step, max_mu2_step
         )
         mu2_new = mu2 + mu2_step
-        values = {
-            "mu1": mu1_new,
-            "pi1": pi1_new,
-            "mu2": mu2_new,
-            "pi2": pi2_new,
-            "delta1": delta1,
-        }
-        for name, scratch in zip(tracks, scratches):
-            scratch[pl.ds(t, 1), :] = values[name]
-        return mu1_new, pi1_new, mu2_new, pi2_new
-
-    final = lax.fori_loop(0, T, step, (row0, ones, row0, ones))
-    cols = [row.T for row in final]  # 4x (tile, 1)
-    fin_ref[...] = jnp.concatenate(cols + [jnp.zeros_like(cols[0])] * 4, -1)
-    for track_ref, scratch in zip(track_refs, scratches):
-        track_ref[...] = scratch[...].T.astype(track_dtype)
-
-
-def _hgf_sublane_kernel(
-    u_ref,
-    *refs,
-    tracks,
-    track_dtype,
-    T,
-    kappa,
-    omega,
-    theta,
-    pi_u,
-    max_log_nu,
-    min_pi2,
-    max_mu2_step,
-):
-    """Kernel in SUBLANE-MAJOR layout: ``u_ref`` is a ``(T*8, C)`` block
-    whose rows ``[8t, 8t+8)`` hold time step t for ``8*C`` replicas, so
-    every recursion step operates on a full ``(8, C)`` vreg-shaped operand
-    instead of the row-major kernel's ``(1, tile)`` single-sublane rows
-    (~1/8 ALU occupancy).  Measured on v5e at (65536, 256): filter-only
-    557 µs vs 827 µs row-major (BENCH_DETAIL.json ladder.hgf) — the step
-    compute itself reaches the all-parallel compute floor; the residual is
-    the XLA-side relayout.  Requested tracks write their step rows
-    DIRECTLY to same-layout outputs (no transpose scratch at all); the
-    caller inverts the layout with one XLA transpose per track.
-
-    ``refs`` = the (32, C) final-state output (sublane rows [8k, 8k+8) =
-    quantity k of mu1/pi1/mu2/pi2), then ``len(tracks)`` (T*8, C) track
-    outputs."""
-    fin_ref = refs[0]
-    track_refs = refs[1:]
-    row0 = u_ref[pl.ds(0, 8), :] * 0.0  # (8, C)
-    ones = row0 + 1.0
-
-    def step(t, carry):
-        mu1, pi1, mu2, pi2 = carry
-        u = u_ref[pl.ds(8 * t, 8), :]
-        log_nu = jnp.clip(kappa * mu2 + omega, -max_log_nu, max_log_nu)
-        nu = jnp.exp(log_nu)
-        pihat1 = 1.0 / (1.0 / pi1 + nu)
-        pi1_new = pihat1 + pi_u
-        mu1_new = mu1 + (pi_u / pi1_new) * (u - mu1)
-        delta1 = (1.0 / pi1_new + (mu1_new - mu1) ** 2) * pihat1 - 1.0
-        pihat2 = 1.0 / (1.0 / pi2 + theta)
-        w1 = nu * pihat1
-        pi2_new = pihat2 + 0.5 * kappa**2 * w1 * (
-            w1 + (2.0 * w1 - 1.0) * delta1
-        )
-        pi2_new = jnp.maximum(pi2_new, min_pi2)
-        mu2_step = jnp.clip(
-            0.5 * kappa * (w1 / pi2_new) * delta1,
-            -max_mu2_step,
-            max_mu2_step,
-        )
-        mu2_new = mu2 + mu2_step
-        values = {
-            "mu1": mu1_new,
-            "pi1": pi1_new,
-            "mu2": mu2_new,
-            "pi2": pi2_new,
-            "delta1": delta1,
-        }
+        values = {"mu1": mu1_new, "pi1": pi1_new, "mu2": mu2_new,
+                  "pi2": pi2_new, "delta1": delta1}
         for name, ref in zip(tracks, track_refs):
-            ref[pl.ds(8 * t, 8), :] = values[name].astype(track_dtype)
+            put(ref, t, values[name])
         return mu1_new, pi1_new, mu2_new, pi2_new
 
-    final = lax.fori_loop(0, T, step, (row0, ones, row0, ones))
-    fin_ref[...] = jnp.concatenate(final, axis=0)  # (32, C)
+    zeros = jnp.zeros_like(get(0))
+    final = lax.fori_loop(0, T, step, (zeros, zeros + 1.0, zeros, zeros + 1.0))
+    for ref, v in zip(fin_refs, final):
+        ref[...] = v
 
 
-def _hgf_filter_sublane(
-    u,
-    tracks,
-    track_dtype,
-    kappa,
-    omega,
-    theta,
-    pi_u,
-    max_log_nu,
-    min_pi2,
-    max_mu2_step,
-    tile,
-    interpret,
-):
-    """Sublane-major relayout + kernel (filter state + requested tracks).
-
-    The relayout ``(n, T) → (T*8, n/8)`` (rows [8t, 8t+8) = step t) is one
-    XLA transpose OUTSIDE the kernel — Mosaic cannot reshape a loaded
-    ``(T, tile)`` block to ``(T, 8, C)`` in-register ("tpu.reshape"
-    fault), so the data arrives pre-shaped and the kernel needs no
-    transpose scratch at all; each track pays one inverse transpose on the
-    way out."""
+@functools.partial(jax.jit, static_argnums=tuple(range(1, 12)))
+def _hgf_filter(u, tracks, track_dtype, kappa, omega, theta, pi_u, max_log_nu,
+                min_pi2, max_mu2_step, tile, interpret):
     n, T = u.shape
-    k = len(tracks)
+    # Strided column loads of the natural (R, T) layout are cheap (a sector
+    # serves 8 steps from cache) but strided stores are not: with tracks the
+    # kernel runs time-major behind XLA transposes (6x faster on an H100 at
+    # 65536 x 256 with 5 tracks), without tracks it reads u in place (1.4x).
+    time_major = bool(tracks)
     pad = (-n) % tile
     if pad:
         u = jnp.concatenate([u, jnp.zeros((pad, T), u.dtype)], axis=0)
     n_padded = u.shape[0]
-    nb = n_padded // tile
-    C = tile // 8
-    X = u.reshape(nb, 8, C, T).transpose(3, 1, 0, 2).reshape(T * 8, nb * C)
+    if time_major:
+        u = u.T
+        seq = pl.BlockSpec((T, tile), lambda i: (0, i))
+    else:
+        seq = pl.BlockSpec((tile, T), lambda i: (i, 0))
+    fin = pl.BlockSpec((tile,), lambda i: (i,))
     kernel = functools.partial(
-        _hgf_sublane_kernel,
-        tracks=tracks,
-        track_dtype=track_dtype,
-        T=T,
-        kappa=kappa,
-        omega=omega,
-        theta=theta,
-        pi_u=pi_u,
-        max_log_nu=max_log_nu,
-        min_pi2=min_pi2,
-        max_mu2_step=max_mu2_step,
+        _hgf_kernel, tracks=tracks, time_major=time_major, kappa=kappa,
+        omega=omega, theta=theta, pi_u=pi_u, max_log_nu=max_log_nu,
+        min_pi2=min_pi2, max_mu2_step=max_mu2_step,
     )
-    in_block = pl.BlockSpec(
-        (T * 8, C), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
-    fin_block = pl.BlockSpec(
-        (32, C), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
-    outs = pl.pallas_call(
-        kernel,
-        grid=(nb,),
-        in_specs=[in_block],
-        out_specs=(fin_block,) + (in_block,) * k,
-        out_shape=(jax.ShapeDtypeStruct((32, nb * C), u.dtype),)
-        + tuple(
-            jax.ShapeDtypeStruct((T * 8, nb * C), track_dtype)
-            for _ in range(k)
-        ),
-        interpret=interpret,
-    )(X)
-    # (32, nb*C): sublane rows [8k, 8k+8) hold quantity k; invert layout.
-    fin = outs[0].reshape(4, 8, nb, C).transpose(0, 2, 1, 3).reshape(4, n_padded)
-    finals = tuple(fin[i, :n] for i in range(4))
-    track_vals = tuple(
-        o.reshape(T, 8, nb, C).transpose(2, 1, 3, 0).reshape(n_padded, T)[:n]
-        for o in outs[1:]
-    )
-    return finals, track_vals
-
-
-_hgf_filter_sublane_jit = jax.jit(
-    _hgf_filter_sublane,
-    static_argnames=(
-        "tracks",
-        "track_dtype",
-        "kappa",
-        "omega",
-        "theta",
-        "pi_u",
-        "max_log_nu",
-        "min_pi2",
-        "max_mu2_step",
-        "tile",
-        "interpret",
-    ),
-)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "tracks",
-        "track_dtype",
-        "kappa",
-        "omega",
-        "theta",
-        "pi_u",
-        "max_log_nu",
-        "min_pi2",
-        "max_mu2_step",
-        "tile",
-        "interpret",
-    ),
-)
-def _hgf_filter_pallas_jit(
-    u,
-    tracks,
-    track_dtype,
-    kappa,
-    omega,
-    theta,
-    pi_u,
-    max_log_nu,
-    min_pi2,
-    max_mu2_step,
-    tile,
-    interpret,
-):
-    n, T = u.shape
-    k = len(tracks)
-    pad = (-n) % tile
-    if pad:
-        u = jnp.concatenate([u, jnp.zeros((pad, T), u.dtype)], axis=0)
-    n_padded = u.shape[0]
-
-    kernel = functools.partial(
-        _hgf_kernel,
-        tracks=tracks,
-        track_dtype=track_dtype,
-        kappa=kappa,
-        omega=omega,
-        theta=theta,
-        pi_u=pi_u,
-        max_log_nu=max_log_nu,
-        min_pi2=min_pi2,
-        max_mu2_step=max_mu2_step,
-    )
-    block = pl.BlockSpec((tile, T), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    # Finals ride in ONE (n_padded, 8) output with a (tile, 8) block —
-    # 8 == the full minor dim, which Pallas accepts untiled; four separate
-    # (tile, 1) outputs would each pad their single lane to 128 and
-    # double-buffer (measured +3 MB scoped VMEM -> OOM of the 16 MB limit).
-    fin_block = pl.BlockSpec((tile, 8), lambda i: (i, 0), memory_space=pltpu.VMEM)
     outs = pl.pallas_call(
         kernel,
         grid=(n_padded // tile,),
-        in_specs=[block],
-        out_specs=(fin_block,) + (block,) * k,
-        out_shape=(jax.ShapeDtypeStruct((n_padded, 8), u.dtype),)
-        + tuple(
-            jax.ShapeDtypeStruct((n_padded, T), track_dtype) for _ in range(k)
+        in_specs=[seq],
+        out_specs=[fin] * 4 + [seq] * len(tracks),
+        out_shape=[jax.ShapeDtypeStruct((n_padded,), u.dtype)] * 4
+        + [jax.ShapeDtypeStruct(u.shape, track_dtype)] * len(tracks),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(1, min(4, tile // 32))
         ),
-        scratch_shapes=[pltpu.VMEM((T, tile), u.dtype) for _ in range(1 + k)],
         interpret=interpret,
+        name="hgf_filter",
     )(u)
-    finals = tuple(outs[0][:n, i] for i in range(4))
-    return finals, tuple(o[:n] for o in outs[1:])
+    finals = tuple(o[:n] for o in outs[:4])
+    track_values = tuple((o.T if time_major else o)[:n] for o in outs[4:])
+    return finals, track_values
 
 
 def hgf_filter_pallas(
@@ -356,7 +134,7 @@ def hgf_filter_pallas(
     min_pi2: float = 1e-2,
     max_mu2_step: float = 5.0,
     tile: int | None = None,
-    interpret: bool | None = None,
+    interpret: bool = False,
     tracks: tuple = ALL_TRACKS,
     track_dtype=None,
 ):
@@ -366,26 +144,19 @@ def hgf_filter_pallas(
     ``(mu1, pi1, mu2, pi2)`` state (each ``(R,)``) and ``track_values``
     holds one ``(R, T)`` array per name in ``tracks`` (a subset of
     :data:`ALL_TRACKS`, order preserved).  Filtering-only callers should
-    pass ``tracks=()`` — output HBM traffic scales with ``len(tracks)``.
+    pass ``tracks=()`` — output traffic scales with ``len(tracks)``.
     ``track_dtype`` (e.g. ``jnp.bfloat16``) casts the trajectory writes
-    only; the in-VMEM recursion always runs in the input dtype.
+    only; the recursion always runs in the input dtype.
 
-    All scalar parameters must be concrete Python numbers — they are jit
-    static arguments (the kernel specializes on them).  For traced
-    parameters (e.g. inside a gradient-based fit via
-    ``HGF.log_likelihood``-style workflows) use ``method='scan'``.
+    All scalar parameters must be concrete Python numbers — the kernel
+    specializes on them.  For traced parameters (e.g. inside a
+    gradient-based fit) use ``method='scan'``.  Runs compiled on a GPU;
+    elsewhere pass ``interpret=True``.
     """
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
-    for name, val in (
-        ("kappa", kappa),
-        ("omega", omega),
-        ("theta", theta),
-        ("pi_u", pi_u),
-        ("max_log_nu", max_log_nu),
-        ("min_pi2", min_pi2),
-        ("max_mu2_step", max_mu2_step),
-    ):
+    params = dict(kappa=kappa, omega=omega, theta=theta, pi_u=pi_u,
+                  max_log_nu=max_log_nu, min_pi2=min_pi2,
+                  max_mu2_step=max_mu2_step)
+    for name, val in params.items():
         if isinstance(val, jax.core.Tracer):
             raise ValueError(
                 f"hgf_filter_pallas parameter {name!r} is a traced value; "
@@ -395,69 +166,11 @@ def hgf_filter_pallas(
     unknown = set(tracks) - set(ALL_TRACKS)
     if unknown:
         raise ValueError(f"unknown tracks {sorted(unknown)}; valid: {ALL_TRACKS}")
-    n, T = u.shape
-    k = len(tracks)
+    interpret = resolve_interpret(interpret, "hgf_filter_pallas")
     track_dtype = u.dtype if track_dtype is None else jnp.dtype(track_dtype)
     if tile is None:
-        # Sublane-major fast path for ALL configs (full (8, C) vreg
-        # operands per step, no transpose scratch; tracks write their step
-        # rows directly and pay one XLA inverse transpose each) — measured
-        # 1.5× the row-major kernel filter-only and 1.5× all-5-track at
-        # the bench shape.  Auto-tile: the (T*8, C) input block plus k
-        # track blocks are double-buffered -> 2·T·tile·(4 + k·itemsize)
-        # bytes; C must be a lane multiple (tile % 1024 == 0).  Very long
-        # T falls through to the row-major kernel and its VMEM guard.
-        per_row = 2 * T * (4 + k * track_dtype.itemsize)
-        stile = (VMEM_BUDGET_BYTES // per_row // 1024) * 1024
-        if stile >= 1024:
-            return _hgf_filter_sublane_jit(
-                u,
-                tuple(tracks),
-                track_dtype,
-                kappa,
-                omega,
-                theta,
-                pi_u,
-                max_log_nu,
-                min_pi2,
-                max_mu2_step,
-                min(stile, 4096),
-                interpret,
-            )
-    # Per-tile VMEM: the (tile, T) input is double-buffered by the
-    # pipeline; each track has a (tile, T) output and a (T, tile)
-    # time-major scratch, plus the input's own scratch -> 3 + 2k buffers
-    # of T*tile*4 bytes (measured from the 19.00M scoped-VMEM report at
-    # tile=1024, k=5: ~14 buffers incl. the (tile, 8) finals).
-    nbuf = 3 + 2 * k
-    # The (tile, 8) finals output pads its 8 lanes to 128 in VMEM and is
-    # double-buffered: + 2*tile*128*4 bytes on top of the track buffers.
-    per_row = nbuf * T * 4 + 2 * 128 * 4
-    if tile is None:
-        tile = max(128, (VMEM_BUDGET_BYTES // per_row // 128) * 128)
-    tile = max(128, (tile // 128) * 128)
-    if per_row * tile > VMEM_BUDGET_BYTES + 4 * 1024 * 1024:
-        # The chosen tile (caller-supplied, or the minimum 128 when the
-        # budget division bottomed out) cannot fit: fail with guidance
-        # instead of a VMEM OOM from Mosaic (ADVICE r3; message names the
-        # tile actually checked, ADVICE r4).
-        raise ValueError(
-            f"hgf_filter_pallas: T={T} with {k} trajectory tracks needs "
-            f"{per_row * tile} bytes of VMEM per grid step at tile={tile} "
-            f"(budget {VMEM_BUDGET_BYTES}); reduce T or tile, request "
-            "fewer tracks, or use method='scan'"
-        )
-    return _hgf_filter_pallas_jit(
-        u,
-        tuple(tracks),
-        track_dtype,
-        kappa,
-        omega,
-        theta,
-        pi_u,
-        max_log_nu,
-        min_pi2,
-        max_mu2_step,
-        tile,
-        interpret,
-    )
+        tile = replica_tile(u.shape[0], lo=32, hi=128)
+    if tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two, got {tile}")
+    return _hgf_filter(u, tuple(tracks), track_dtype, *params.values(), tile,
+                       interpret)

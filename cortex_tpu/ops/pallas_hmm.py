@@ -1,31 +1,24 @@
-"""Fused Pallas forward-backward for discrete HMM chains.
+"""Fused scaled forward-backward for discrete HMM chains (Pallas, Triton).
 
-The log-space scan (:mod:`cortex_tpu.ops.hmm`) is numerically bulletproof but
-logsumexp-heavy (VPU transcendentals).  This kernel runs the *scaled*
-forward-backward — per-step renormalized probabilities, the classical
-Rabiner scaling — entirely in VMEM per replica tile.
+The log-space scan (:mod:`cortex_tpu.ops.hmm`) is numerically bulletproof
+but, on a GPU, launches kernels at every one of its 2T steps.  This kernel
+runs the *scaled* forward-backward — per-step renormalized probabilities,
+the classical Rabiner scaling — as one program per block of replicas with
+both time loops inside the program:
 
-Layout: **replicas ride the 128-wide lane dimension, states the sublanes**.
-Blocks are ``(T, K, tile)``, so a timestep slice is a ``(K, tile)`` register
-tile and the recursions are ``(K, K) @ (K, tile)`` matmuls — full lanes at
-any state count.  (The first version put states on lanes — ``(tile, K)``
-slices with K=4 lanes of a 128-lane vector unit — which both wasted 97% of
-the VPU and crashed the remote TPU worker at production sizes, a Mosaic
-masked-store fault this layout avoids.)
+- ``alpha_t ∝ (alpha_{t-1} A) * lik_t`` and
+  ``beta_t ∝ A (lik_{t+1} * beta_{t+1})``, each a ``(tile, K, K)``
+  broadcast-multiply-sum in registers (K is far below a tensor-core tile);
+  K is padded to a power of two with states of zero mass;
+- the per-step normalizers accumulate into ``log Z``;
+- the forward pass stores its normalized alphas in the marginal output and
+  the backward pass overwrites them with the marginals in place;
+- the counts variant also sums the pairwise marginals
+  ``xi_t ∝ alpha_t[j] A[j, k] lik_{t+1}[k] beta_{t+1}[k]`` in registers, so
+  the whole Dirichlet-VMP E-step reads the likelihoods and writes the
+  marginals once.
 
-- ``alpha_t ∝ Aᵀ @ alpha_{t-1} * lik_t`` and
-  ``beta_t ∝ A @ (lik_{t+1} * beta_{t+1})``,
-- the per-step normalizers accumulate into ``log Z``,
-- the forward pass stores its normalized alphas *into the output buffer* and
-  the backward pass overwrites them with the marginals in place, so the only
-  HBM traffic is the likelihood read and the marginal write.
-
-Equivalent to the log-space path up to float error; falls back to the
-interpreter off-TPU.  Precision note (measured on v5e): the scaled
-recursion leans on the VPU's approximate reciprocal/exp, landing ~3e-3
-relative on gammas/counts vs the log-space scan (exact to 1e-6 in
-interpret mode) — immaterial for VMP expected counts, but use the
-log-space ``method="scan"`` when per-step posteriors must be tight.
+Equal to the log-space path up to float32 rounding of the scaled recursion.
 """
 
 from __future__ import annotations
@@ -37,7 +30,9 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from ._triton import next_pow2, replica_tile, resolve_interpret
 
 __all__ = [
     "hmm_forward_backward_pallas",
@@ -46,150 +41,12 @@ __all__ = [
     "HMMPallasCounts",
 ]
 
+_TINY = 1e-30
+
 
 class HMMPallasPosterior(NamedTuple):
     gamma: jax.Array  # (R, T, K) state marginals
     log_evidence: jax.Array  # (R,)
-
-
-def _fwd_bwd(lik_ref, At_ref, A_ref, pi_ref, gamma_ref, logz_ref, alpha_ref):
-    """Shared sweep body on the (T, K, tile) layout.
-
-    lik_ref: (T, K, Rt); At_ref/A_ref: (K, K) (Aᵀ and A); pi_ref: (K, 1);
-    gamma_ref: (T, K, Rt) — alphas during the forward pass, marginals after;
-    logz_ref: (8, Rt) (row-broadcast per replica); alpha_ref: (T, K, Rt)
-    or None (when pairwise stats are not needed).
-    """
-    T = lik_ref.shape[0]
-
-    # -- forward with per-step renormalization -----------------------------
-    a0 = pi_ref[:, :] * lik_ref[0]  # (K, Rt)
-    n0 = jnp.maximum(jnp.sum(a0, axis=0, keepdims=True), 1e-30)  # (1, Rt)
-    a0 = a0 / n0
-    gamma_ref[0] = a0
-    if alpha_ref is not None:
-        alpha_ref[0] = a0
-    logz0 = jnp.log(n0)  # (1, Rt)
-
-    def fwd(t, carry):
-        alpha_prev, logz = carry
-        pred = jnp.dot(
-            At_ref[:, :], alpha_prev, preferred_element_type=jnp.float32
-        )  # (K, Rt)
-        a = pred * lik_ref[t]
-        n = jnp.maximum(jnp.sum(a, axis=0, keepdims=True), 1e-30)
-        a = a / n
-        gamma_ref[t] = a
-        if alpha_ref is not None:
-            alpha_ref[t] = a
-        return a, logz + jnp.log(n)
-
-    _, logz = lax.fori_loop(1, T, fwd, (a0, logz0))
-    logz_ref[:, :] = jnp.broadcast_to(logz, logz_ref.shape)
-
-    # -- backward, overwriting alphas with marginals in place --------------
-    ones = jnp.ones_like(a0)
-
-    def bwd(i, beta_next):
-        t = T - 2 - i
-        w = lik_ref[t + 1] * beta_next  # (K, Rt)
-        b = jnp.dot(A_ref[:, :], w, preferred_element_type=jnp.float32)
-        b = b / jnp.maximum(jnp.sum(b, axis=0, keepdims=True), 1e-30)
-        g = gamma_ref[t] * b  # gamma_ref[t] still holds alpha_t
-        gamma_ref[t] = g / jnp.maximum(
-            jnp.sum(g, axis=0, keepdims=True), 1e-30
-        )
-        return b
-
-    lax.fori_loop(0, T - 1, bwd, ones)
-
-
-def _fb_kernel(lik_ref, At_ref, A_ref, pi_ref, gamma_ref, logz_ref):
-    _fwd_bwd(lik_ref, At_ref, A_ref, pi_ref, gamma_ref, logz_ref, None)
-
-
-def _fb_alpha_kernel(
-    lik_ref, At_ref, A_ref, pi_ref, gamma_ref, alpha_ref, logz_ref
-):
-    """As :func:`_fb_kernel`, additionally writing the scaled forward
-    messages (alphas) to their own output so pairwise statistics can be
-    assembled outside the kernel (the K × K outer products run as one XLA
-    einsum afterwards)."""
-    _fwd_bwd(lik_ref, At_ref, A_ref, pi_ref, gamma_ref, logz_ref, alpha_ref)
-
-
-def _auto_tile(R, T, K, itemsize, nbuf):
-    """Largest 128-multiple replica tile whose ``nbuf`` (T, K, tile) VMEM
-    buffers fit a conservative 12 MB budget — fewer grid steps means fewer
-    latency-bound kernel launches (measured on v5e at (4096, 64, 4):
-    tile 256 → 505 µs/iter, 4096 → 264 µs/iter vs 333 µs for the log-space
-    scan)."""
-    budget = 12 * 1024 * 1024
-    tile = budget // (nbuf * T * K * itemsize)
-    tile = max(128, (tile // 128) * 128)
-    return min(tile, max(128, (-(-R // 128)) * 128))
-
-
-def _prep(lik, A, pi, tile):
-    """Pad replicas to the tile, relayout to (T, K, Rp), build specs."""
-    R, T, K = lik.shape
-    pad = (-R) % tile
-    if pad:
-        lik = jnp.concatenate(
-            [lik, jnp.ones((pad, T, K), lik.dtype) / K], axis=0
-        )
-    Rp = lik.shape[0]
-    likT = jnp.transpose(lik, (1, 2, 0))  # (T, K, Rp): replicas on lanes
-    A_ = A.astype(lik.dtype)
-    pi2 = pi[:, None].astype(lik.dtype)  # (K, 1)
-
-    lik_spec = pl.BlockSpec(
-        (T, K, tile), lambda i: (0, 0, i), memory_space=pltpu.VMEM
-    )
-    kk_spec = pl.BlockSpec((K, K), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    pi_spec = pl.BlockSpec((K, 1), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    logz_spec = pl.BlockSpec(
-        (8, tile), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
-    return likT, A_, pi2, Rp, lik_spec, kk_spec, pi_spec, logz_spec
-
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def hmm_forward_backward_pallas(
-    lik: jax.Array,
-    A: jax.Array,
-    pi: jax.Array,
-    tile: int | None = None,
-    interpret: bool | None = None,
-) -> HMMPallasPosterior:
-    """Scaled forward-backward; ``lik``: ``(R, T, K)`` per-step likelihoods
-    (linear space), ``A``: ``(K, K)`` row-stochastic, ``pi``: ``(K,)``.
-
-    VMEM use is ~``2 * T * K * tile * 4`` bytes per grid step — choose a
-    smaller tile for long chains / many states.
-    """
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
-    R, T, K = lik.shape
-    if tile is None:
-        tile = _auto_tile(R, T, K, jnp.dtype(lik.dtype).itemsize, nbuf=2)
-    likT, A_, pi2, Rp, lik_spec, kk_spec, pi_spec, logz_spec = _prep(
-        lik, A, pi, tile
-    )
-    gamma, logz = pl.pallas_call(
-        _fb_kernel,
-        grid=(Rp // tile,),
-        in_specs=[lik_spec, kk_spec, kk_spec, pi_spec],
-        out_specs=(lik_spec, logz_spec),
-        out_shape=(
-            jax.ShapeDtypeStruct((T, K, Rp), lik.dtype),
-            jax.ShapeDtypeStruct((8, Rp), lik.dtype),
-        ),
-        interpret=interpret,
-    )(likT, A_.T, A_, pi2)
-    return HMMPallasPosterior(
-        jnp.transpose(gamma, (2, 0, 1))[:R], logz[0, :R]
-    )
 
 
 class HMMPallasCounts(NamedTuple):
@@ -198,53 +55,160 @@ class HMMPallasCounts(NamedTuple):
     log_evidence: jax.Array  # (R,)
 
 
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
+def _fb_kernel(lik_ref, a_ref, pi_ref, gamma_ref, logz_ref, *xi_ref):
+    """One block of replicas in the natural layout.  ``lik_ref`` and
+    ``gamma_ref``: ``(tile, T, K)``, so a step moves K contiguous values per
+    replica; ``a_ref``: ``(K, K)``; ``pi_ref``: ``(K,)``; ``logz_ref``:
+    ``(tile,)``; the optional ``xi_ref``: ``(tile, K, K)``."""
+    T = lik_ref.shape[1]
+
+    def normalizer(x):
+        return jnp.maximum(jnp.sum(x, axis=1), _TINY)
+
+    A = a_ref[...]
+    if A.shape[0] >= 16:
+        # Triton turns a broadcast-multiply-sum this wide into a dot that
+        # defaults to TF32 (log-evidence off by 1e-3 at K=16): ask for an
+        # IEEE float32 dot instead.
+        def times_A(x):  # x @ A
+            return jnp.dot(x, A, precision=lax.Precision.HIGHEST)
+
+        def times_At(x):  # x @ A.T
+            return lax.dot_general(x, A, (((1,), (1,)), ((), ())),
+                                   precision=lax.Precision.HIGHEST)
+    else:
+        def times_A(x):
+            return jnp.sum(x[:, :, None] * A[None, :, :], axis=1)
+
+        def times_At(x):
+            return jnp.sum(x[:, None, :] * A[None, :, :], axis=2)
+
+    a0 = pi_ref[...][None, :] * lik_ref[:, 0, :]
+    n0 = normalizer(a0)
+    a0 = a0 / n0[:, None]
+    gamma_ref[:, 0, :] = a0
+
+    def fwd(t, carry):
+        alpha, logz = carry
+        a = times_A(alpha) * lik_ref[:, t, :]
+        n = normalizer(a)
+        a = a / n[:, None]
+        gamma_ref[:, t, :] = a
+        return a, logz + jnp.log(n)
+
+    _, logz = lax.fori_loop(1, T, fwd, (a0, jnp.log(n0)))
+    logz_ref[...] = logz
+
+    def bwd(i, carry):
+        beta, S = carry
+        t = T - 2 - i
+        w = lik_ref[:, t + 1, :] * beta
+        b = times_At(w)
+        alpha = gamma_ref[:, t, :]  # still alpha_t
+        g = alpha * b
+        N = normalizer(g)
+        gamma_ref[:, t, :] = g / N[:, None]
+        if xi_ref:
+            S = S + (alpha / N[:, None])[:, :, None] * w[:, None, :]
+        return b / normalizer(b)[:, None], S
+
+    K = A.shape[0]
+    S0 = jnp.zeros((a0.shape[0], K, K) if xi_ref else (), a0.dtype)
+    _, S = lax.fori_loop(0, T - 1, bwd, (jnp.ones_like(a0), S0))
+    if xi_ref:
+        xi_ref[0][...] = A[None, :, :] * S
+
+
+def _plan(R: int, K: int, tile: int | None) -> int:
+    """Replica block: powers of two, with the ``(tile, K, K)`` register
+    products held to 4096 elements."""
+    Kp = next_pow2(K)
+    if tile is None:
+        tile = replica_tile(R, lo=16, hi=max(16, 4096 // (Kp * Kp)))
+    if tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two, got {tile}")
+    return tile
+
+
+@functools.partial(jax.jit, static_argnums=(3, 4, 5))
+def _forward_backward(lik, A, pi, counts, tile, interpret):
+    R, T, K = lik.shape
+    Kp = next_pow2(K)
+    pad_r = (-R) % tile
+    dt = lik.dtype
+    # Padded replicas see uniform likelihoods; padded states have zero mass
+    # (zero likelihood, zero prior, zero transitions in and out).
+    lik = jnp.pad(lik, ((0, pad_r), (0, 0), (0, Kp - K)))
+    if pad_r:
+        lik = lik.at[R:, :, :K].set(1.0)
+    A_ = jnp.pad(A.astype(dt), ((0, Kp - K), (0, Kp - K)))
+    pi_ = jnp.pad(pi.astype(dt), (0, Kp - K))
+    Rp = R + pad_r
+
+    # The natural layout: on an H100 it matched a time-major copy at K=4
+    # and K=16 without paying for the transposes.
+    seq = pl.BlockSpec((tile, T, Kp), lambda i: (i, 0, 0))
+    out_specs = [seq, pl.BlockSpec((tile,), lambda i: (i,))]
+    out_shape = [jax.ShapeDtypeStruct(lik.shape, dt),
+                 jax.ShapeDtypeStruct((Rp,), dt)]
+    if counts:
+        out_specs.append(pl.BlockSpec((tile, Kp, Kp), lambda i: (i, 0, 0)))
+        out_shape.append(jax.ShapeDtypeStruct((Rp, Kp, Kp), dt))
+    outs = pl.pallas_call(
+        _fb_kernel,
+        grid=(Rp // tile,),
+        in_specs=[
+            seq,
+            pl.BlockSpec((Kp, Kp), lambda i: (0, 0)),
+            pl.BlockSpec((Kp,), lambda i: (0,)),
+        ],
+        out_specs=out_specs,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(1, min(4, tile * Kp // 64))
+        ),
+        interpret=interpret,
+        name="hmm_forward_backward",
+    )(lik, A_, pi_)
+    gamma, logz = outs[0][:R, :, :K], outs[1][:R]
+    if counts:
+        return HMMPallasCounts(gamma, outs[2][:R, :K, :K], logz)
+    return HMMPallasPosterior(gamma, logz)
+
+
+def hmm_forward_backward_pallas(
+    lik: jax.Array,
+    A: jax.Array,
+    pi: jax.Array,
+    tile: int | None = None,
+    interpret: bool = False,
+) -> HMMPallasPosterior:
+    """Scaled forward-backward; ``lik``: ``(R, T, K)`` per-step likelihoods
+    (linear space), ``A``: ``(K, K)`` row-stochastic, ``pi``: ``(K,)``.
+
+    Runs compiled on a GPU; elsewhere pass ``interpret=True``.
+    """
+    interpret = resolve_interpret(interpret, "hmm_forward_backward_pallas")
+    tile = _plan(lik.shape[0], lik.shape[2], tile)
+    return _forward_backward(lik, A, pi, False, tile, interpret)
+
+
 def hmm_forward_backward_counts_pallas(
     lik: jax.Array,
     A: jax.Array,
     pi: jax.Array,
     tile: int | None = None,
-    interpret: bool | None = None,
+    interpret: bool = False,
 ) -> HMMPallasCounts:
     """Scaled forward-backward emitting state marginals AND summed pairwise
-    expected counts — the complete E-step of Dirichlet VMP.
+    expected counts ``xi_sum``: ``(R, K, K)`` — the complete E-step of
+    Dirichlet VMP, in one kernel.
 
-    The sweep runs in the fused kernel (gammas + alphas + logZ); the pairwise
-    sum ``xi_sum[r] = A ⊙ Σ_t (α̂_t/N_t) ⊗ ŵ_t`` assembles as one batched
-    einsum on the MXU.  ``xi_sum``: (R, K, K).
+    Runs compiled on a GPU; elsewhere pass ``interpret=True``.
     """
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
-    R, T, K = lik.shape
-    if tile is None:
-        tile = _auto_tile(R, T, K, jnp.dtype(lik.dtype).itemsize, nbuf=3)
-    likT, A_, pi2, Rp, lik_spec, kk_spec, pi_spec, logz_spec = _prep(
-        lik, A, pi, tile
+    interpret = resolve_interpret(
+        interpret, "hmm_forward_backward_counts_pallas"
     )
-    gamma, alpha, logz = pl.pallas_call(
-        _fb_alpha_kernel,
-        grid=(Rp // tile,),
-        in_specs=[lik_spec, kk_spec, kk_spec, pi_spec],
-        out_specs=(lik_spec, lik_spec, logz_spec),
-        out_shape=(
-            jax.ShapeDtypeStruct((T, K, Rp), lik.dtype),
-            jax.ShapeDtypeStruct((T, K, Rp), lik.dtype),
-            jax.ShapeDtypeStruct((8, Rp), lik.dtype),
-        ),
-        interpret=interpret,
-    )(likT, A_.T, A_, pi2)
-
-    # Pairwise stats in XLA: beta ~ gamma/alpha (scale cancels in N_t).
-    eps = jnp.asarray(1e-30, lik.dtype)
-    beta = gamma / (alpha + eps)  # (T, K, Rp), unnormalized
-    w = likT[1:] * beta[1:]  # (T-1, K, Rp)
-    a_prev = alpha[:-1]
-    # Two bounded contractions (a single 3-operand einsum can materialize a
-    # (T, R, K, K) intermediate at scale).
-    pred = jnp.einsum("tjr,jk->tkr", a_prev, A_)
-    N = jnp.sum(pred * w, axis=1) + eps  # (T-1, Rp)
-    S = jnp.einsum("tjr,tkr->rjk", a_prev / N[:, None, :], w)
-    xi_sum = A_[None, :, :] * S
-    return HMMPallasCounts(
-        jnp.transpose(gamma, (2, 0, 1))[:R], xi_sum[:R], logz[0, :R]
-    )
+    tile = _plan(lik.shape[0], lik.shape[2], tile)
+    return _forward_backward(lik, A, pi, True, tile, interpret)

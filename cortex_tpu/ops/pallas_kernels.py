@@ -1,15 +1,19 @@
-"""Pallas TPU kernels for the hot message-passing sweeps.
+"""Fused scalar-LGSSM smoothing sweep as one Pallas kernel (Triton route).
 
-:func:`lgssm_smooth_pallas` fuses the complete scalar-LGSSM BP sweep —
-forward messages, backward messages, and marginals — into ONE kernel: each
-grid step loads a ``(T, R_tile)`` block of observations into VMEM, runs both
-time recursions with the carry and the forward-message buffer resident in
-VMEM, and writes only the final marginal means/variances back to HBM.  No
-intermediate HBM traffic (the ``lax.scan`` path materializes the stacked
-forward messages between the two scans), so the sweep runs at the
-input/output bandwidth floor.
+:func:`lgssm_smooth_pallas` runs the whole BP sweep — forward messages,
+backward messages and marginals — inside one program per block of replicas,
+with the time loop inside the program.  ``lax.scan`` on a GPU launches at
+least one kernel per step, two sweeps of T steps each; this kernel is one
+launch that reads ``y`` twice and writes the means.  It works on a
+time-major copy of ``y`` (an XLA transpose on each side), so that every
+step reads and writes one contiguous row of the block.
 
-Falls back to interpreter mode off-TPU so tests run on CPU.
+With fixed ``(A, Q, H, R)`` and dense data every precision in the sweep —
+forward, backward and marginal — is the same for all replicas and does not
+depend on ``y`` (``chains.py``'s operator note), so they are computed once,
+in float64 on the host, as per-step coefficients.  The kernel carries only
+the information means; the forward messages live in the mean output, which
+the backward pass overwrites in place.
 """
 
 from __future__ import annotations
@@ -18,137 +22,122 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
+from ._triton import replica_tile, resolve_interpret
 from .chains import ChainMarginals
 
-__all__ = ["lgssm_smooth_pallas"]
+__all__ = ["lgssm_smooth_pallas", "smoother_coefficients"]
 
 
-def _smooth_kernel(y_ref, mean_ref, var_ref, yt_ref, xi_f_ref, w_f_ref,
-                   mean_t_ref, var_t_ref, *, A, Q, H, R):
-    """One replica tile on the NATURAL layout: y_ref/mean_ref/var_ref are
-    (Rt, T) VMEM blocks.  The time recursion wants timesteps on sublanes, so
-    the tile is relayouted once in VMEM ((Rt,T)->(T,Rt), and back for the
-    outputs) — a register/VMEM shuffle instead of the three HBM round-trip
-    transposes the previous (T,R)-convention kernel paid outside the kernel
-    (24MB extra HBM traffic per 10k-replica sweep; the reason it lost to the
-    two-scan path at 100k replicas in BENCH_r01)."""
-    yt_ref[...] = y_ref[...].T
-    _smooth_time_major(yt_ref, mean_t_ref, var_t_ref, xi_f_ref, w_f_ref,
-                       A=A, Q=Q, H=H, R=R)
-    mean_ref[...] = mean_t_ref[...].T
-    var_ref[...] = var_t_ref[...].T
+def smoother_coefficients(T: int, A: float, Q: float, H: float, R: float):
+    """Per-step coefficients of the dense scalar sweep, float64 ``(T,)``.
+
+    ``cf[t]`` maps the filtered information mean of x_{t-1} to the forward
+    message into x_t, ``cb[t]`` maps the right belief of x_{t+1} to the
+    backward message into x_t, and ``var[t]`` is the marginal variance.
+    The same division-safe projections as :func:`chains._info_form_smooth`.
+    """
+    w_obs = H * H / R
+    cf = np.zeros(T)
+    w_f = np.zeros(T)
+    w_c = w_obs
+    for t in range(1, T):
+        denom = A * A + Q * w_c
+        cf[t] = A / denom
+        w_f[t] = w_c / denom
+        w_c = w_f[t] + w_obs
+    cb = np.zeros(T)
+    w_b = np.zeros(T)
+    w_c = w_obs
+    for t in range(T - 2, -1, -1):
+        denom = 1.0 + Q * w_c
+        cb[t] = A / denom
+        w_b[t] = A * A * w_c / denom
+        w_c = w_b[t] + w_obs
+    return cf, cb, 1.0 / (w_obs + w_f + w_b)
 
 
-def _smooth_time_major(y_ref, mean_ref, var_ref, xi_f_ref, w_f_ref,
-                       *, A, Q, H, R):
-    """Recursion core: y_ref/(outputs) are (T, Rt) VMEM blocks/scratch."""
+def _smooth_kernel(y_ref, cf_ref, cb_ref, var_ref, mean_ref, *, h_r):
+    """One block of replicas, time-major: ``y_ref``/``mean_ref`` are
+    ``(T, tile)`` so each step reads and writes one contiguous row; the
+    coefficients are ``(T,)``."""
     T = y_ref.shape[0]
-    w_obs = (H * H) / R
+    xi0 = h_r * y_ref[0, :]
+    mean_ref[0, :] = jnp.zeros_like(xi0)  # no forward message into x_0
 
-    def xi_obs(t):
-        return H * y_ref[pl.ds(t, 1), :] / R  # (1, Rt)
+    def fwd(t, xi_c):  # xi_c: filtered information mean of x_{t-1}
+        xi_msg = cf_ref[t] * xi_c
+        mean_ref[t, :] = xi_msg
+        return xi_msg + h_r * y_ref[t, :]
 
-    # -- forward pass: store forward messages, carry the filtered belief ----
-    zero_row = jnp.zeros_like(y_ref[pl.ds(0, 1), :])
-    xi_f_ref[pl.ds(0, 1), :] = zero_row
-    w_f_ref[pl.ds(0, 1), :] = zero_row
+    xi_last = lax.fori_loop(1, T, fwd, xi0)
+    mean_ref[T - 1, :] = xi_last * var_ref[T - 1]
 
-    def fwd(t, carry):
-        xi_c, w_c = carry  # filtered belief of x_{t-1}
-        m = xi_c / w_c
-        v = 1.0 / w_c
-        v_msg = A * A * v + Q
-        w_msg = 1.0 / v_msg
-        xi_msg = A * m * w_msg
-        xi_f_ref[pl.ds(t, 1), :] = xi_msg
-        w_f_ref[pl.ds(t, 1), :] = w_msg
-        return (xi_msg + xi_obs(t), w_msg + w_obs)
-
-    carry0 = (xi_obs(0), jnp.full_like(zero_row, w_obs))
-    lax.fori_loop(1, T, fwd, carry0)
-
-    # -- backward pass: emit marginals on the fly ---------------------------
-    xi_mT = xi_obs(T - 1) + xi_f_ref[pl.ds(T - 1, 1), :]
-    w_mT = w_obs + w_f_ref[pl.ds(T - 1, 1), :]
-    mean_ref[pl.ds(T - 1, 1), :] = xi_mT / w_mT
-    var_ref[pl.ds(T - 1, 1), :] = 1.0 / w_mT
-
-    def bwd(i, carry):
+    def bwd(i, xi_b):  # xi_b: right belief of x_{t+1}
         t = T - 2 - i
-        xi_b, w_b = carry  # right-belief at x_{t+1} (obs + bwd message)
-        m = xi_b / w_b
-        v = 1.0 / w_b
-        v_msg = (v + Q) / (A * A)
-        w_msg = 1.0 / v_msg
-        xi_msg = (m / A) * w_msg
-        xi_m = xi_obs(t) + xi_f_ref[pl.ds(t, 1), :] + xi_msg
-        w_m = w_obs + w_f_ref[pl.ds(t, 1), :] + w_msg
-        mean_ref[pl.ds(t, 1), :] = xi_m / w_m
-        var_ref[pl.ds(t, 1), :] = 1.0 / w_m
-        return (xi_obs(t) + xi_msg, w_obs + w_msg)
+        xi_o = h_r * y_ref[t, :]
+        xi_msg = cb_ref[t] * xi_b
+        mean_ref[t, :] = (xi_o + mean_ref[t, :] + xi_msg) * var_ref[t]
+        return xi_o + xi_msg
 
-    carryT = (xi_obs(T - 1), jnp.full_like(zero_row, w_obs))
-    lax.fori_loop(0, T - 1, bwd, carryT)
+    lax.fori_loop(0, T - 1, bwd, h_r * y_ref[T - 1, :])
 
 
-@functools.partial(jax.jit, static_argnames=("A", "Q", "H", "R", "tile", "interpret"))
 def lgssm_smooth_pallas(
     y: jax.Array,
     A: float = 1.0,
     Q: float = 1.0,
     H: float = 1.0,
     R: float = 1.0,
-    tile: int = 2048,
-    interpret: bool | None = None,
+    tile: int | None = None,
+    interpret: bool = False,
 ) -> ChainMarginals:
-    """Fused BP smoothing sweep; ``y``: ``(n_replicas, T)`` float32.
+    """Fused BP smoothing sweep; ``y``: ``(n_replicas, T)``, dense.
 
     Identical marginals to :func:`~cortex_tpu.ops.chains.lgssm_smooth_scan`
-    (no-prior convention).  Replicas are tiled over the grid; ``T`` stays
-    resident per tile.
+    (no-prior convention).  ``tile`` (a power of two) is the number of
+    replicas per program; by default it is sized so the grid fills the card.
+    Runs compiled on a GPU; elsewhere pass ``interpret=True``.
     """
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
+    interpret = resolve_interpret(interpret, "lgssm_smooth_pallas")
+    if tile is None:
+        tile = replica_tile(y.shape[0], lo=32, hi=128)
+    if tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two, got {tile}")
+    return _smooth(y, A, Q, H, R, tile, interpret)
+
+
+@functools.partial(jax.jit, static_argnums=tuple(range(1, 7)))
+def _smooth(y, A, Q, H, R, tile, interpret):
     n, T = y.shape
-    # VMEM budget guard: the kernel holds 8 T×tile f32 buffers per grid step
-    # (3 in/out blocks + 5 scratch).  Auto-halve the tile until the footprint
-    # fits a conservative 12 MB VMEM budget (chip VMEM is 16 MB), so large T
-    # can't compile to a VMEM OOM (ADVICE r2 medium item).
-    vmem_budget = 12 * 1024 * 1024
-    # Lane alignment: replica tiles must be multiples of the 128-wide lane
-    # dimension (Mosaic rejects e.g. tile=625); round down before shrinking.
-    tile = max(128, (tile // 128) * 128)
-    while tile > 128 and 8 * T * tile * jnp.dtype(y.dtype).itemsize > vmem_budget:
-        # Halve but stay on the 128-lane grid (384 -> 192 would violate it).
-        tile = max(128, (tile // 2) // 128 * 128)
     pad = (-n) % tile
     if pad:
-        y = jnp.concatenate([y, jnp.ones((pad, T), y.dtype)], axis=0)
+        y = jnp.concatenate([y, jnp.zeros((pad, T), y.dtype)], axis=0)
     n_padded = y.shape[0]
+    cf, cb, var = (
+        jnp.asarray(c, y.dtype) for c in smoother_coefficients(T, A, Q, H, R)
+    )
 
-    kernel = functools.partial(_smooth_kernel, A=A, Q=Q, H=H, R=R)
-    grid = (n_padded // tile,)
-    block = pl.BlockSpec((tile, T), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    mean, var = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[block],
-        out_specs=(block, block),
-        out_shape=(
-            jax.ShapeDtypeStruct((n_padded, T), y.dtype),
-            jax.ShapeDtypeStruct((n_padded, T), y.dtype),
+    # Time-major: strided column stores of the natural (R, T) layout cost
+    # more than the two XLA transposes (2.3x at 100k x 1000 on an H100).
+    block = pl.BlockSpec((T, tile), lambda i: (0, i))
+    coef = pl.BlockSpec((T,), lambda i: (0,))
+    mean = pl.pallas_call(
+        functools.partial(_smooth_kernel, h_r=H / R),
+        grid=(n_padded // tile,),
+        in_specs=[block, coef, coef, coef],
+        out_specs=block,
+        out_shape=jax.ShapeDtypeStruct((T, n_padded), y.dtype),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=max(1, min(4, tile // 32))
         ),
-        scratch_shapes=[
-            pltpu.VMEM((T, tile), y.dtype),  # y relayout (time-major)
-            pltpu.VMEM((T, tile), y.dtype),  # forward-message xi
-            pltpu.VMEM((T, tile), y.dtype),  # forward-message w
-            pltpu.VMEM((T, tile), y.dtype),  # marginal mean (time-major)
-            pltpu.VMEM((T, tile), y.dtype),  # marginal var (time-major)
-        ],
         interpret=interpret,
-    )(y)
-    return ChainMarginals(mean[:n], var[:n])
+        name="lgssm_smooth",
+    )(y.T, cf, cb, var)
+    mean = mean.T[:n]
+    return ChainMarginals(mean, jnp.broadcast_to(var, mean.shape))

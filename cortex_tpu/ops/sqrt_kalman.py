@@ -10,14 +10,14 @@ QR factorization of a stacked pre-array, so the covariance is PSD *by
 construction* and the effective precision doubles (condition number of ``S``
 is the square root of that of ``P``).
 
-TPU mapping: each step is a batched thin QR of a ``(2d, d)`` / ``(m+d, m+d)``
-pre-array — Householder reflections lower onto MXU matmuls, batched over
+Mapping: each step is a batched thin QR of a ``(2d, d)`` / ``(m+d, m+d)``
+pre-array — Householder reflections lower onto matmuls, batched over
 replicas.  The sweep is a ``lax.scan`` (sequential in time: this is the
 robust path; the fast path is the associative scan in ``chains_mv``).
 
 The reference has no numerical-robustness machinery at all (its payloads are
 opaque user objects, ``/root/reference/src/signal.jl:82-115``); this subsystem
-exists because f32/bf16 is the TPU-native regime.
+exists because f32/bf16 is the accelerator's native regime.
 
 References: Kailath, Sayed & Hassibi, *Linear Estimation*, ch. 12 (array
 algorithms); Särkkä, *Bayesian Filtering and Smoothing*, §6.3.
@@ -30,6 +30,8 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 from jax import lax
+
+from ..utils import float32_matmuls
 
 from .chains_mv import MvChainMarginals
 
@@ -82,6 +84,7 @@ def _prepare(y, A, Q, H, R, prior):
     return yT, obsT, A, H, Lq, Lr, m0, L0
 
 
+@float32_matmuls
 def sqrt_lgssm_filter(
     y: jax.Array,
     A: jax.Array,
@@ -156,6 +159,7 @@ def sqrt_lgssm_filter(
     return SqrtFilterBeliefs(jnp.moveaxis(means, 0, -2), jnp.moveaxis(chols, 0, -3))
 
 
+@float32_matmuls
 def sqrt_lgssm_smooth(
     y: jax.Array,
     A: jax.Array,

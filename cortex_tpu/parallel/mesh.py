@@ -4,8 +4,8 @@ The reference has no distributed runtime (SURVEY.md §2.3); scaling here is
 SPMD over a `jax.sharding.Mesh`:
 
 - ``replica`` axis: independent graph replicas (datasets / chains / particle
-  sets) — pure data parallelism over DCN/ICI, collectives only for reductions,
-- ``time`` axis: time-slices of long state-space chains over ICI — the
+  sets) — pure data parallelism, collectives only for reductions,
+- ``time`` axis: time-slices of long state-space chains across devices — the
   message-passing analogue of pipeline/sequence parallelism (see
   :mod:`cortex_tpu.parallel.time_sharded`).
 """
@@ -35,11 +35,12 @@ def init_distributed(
     """Initialize multi-host JAX (`jax.distributed.initialize`) and return the
     global device count.
 
-    On a multi-host TPU pod slice the arguments are auto-detected from the
-    environment; pass them explicitly elsewhere.  After initialization,
-    :func:`make_mesh` sees the global device set, with the ``replica`` axis
-    naturally spanning DCN (hosts) and inner axes spanning ICI.  No-ops when
-    already initialized or single-process.
+    Pass ``coordinator_address`` (e.g. ``"localhost:<port>"``),
+    ``num_processes`` and ``process_id`` unless the cluster environment
+    provides them.  After initialization, :func:`make_mesh` sees the global
+    device set, with the ``replica`` axis naturally spanning hosts and inner
+    axes spanning the devices of one host.  No-ops when already initialized
+    or single-process.
     """
     try:
         jax.distributed.initialize(

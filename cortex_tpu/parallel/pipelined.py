@@ -1,4 +1,4 @@
-"""Pipeline-parallel LGSSM smoothing: ppermute halo exchange over ICI.
+"""Pipeline-parallel LGSSM smoothing: ppermute halo exchange between devices.
 
 The reference smooths a chain by sequential alternating sweeps of one
 message at a time (``/root/reference/src/inference_engine.jl:575-607``).
@@ -14,7 +14,7 @@ SURVEY.md §2.3):
 - each stage runs the in-block ``lax.scan`` recursion for one microbatch,
   then hands the 2-scalar-per-replica boundary message (the filtered belief
   in information form) to the next stage with ``lax.ppermute`` — a pure
-  ICI halo exchange, no all-to-all traffic;
+  halo exchange, no all-to-all traffic;
 - the classic pipeline schedule overlaps stages: while stage 1 processes
   microbatch k, stage 0 processes microbatch k+1.  The bubble fraction is
   ``(n_stages - 1) / (n_stages + n_micro - 1)``.

@@ -2,7 +2,7 @@
 
 The reference ingests data by ``set_value!`` on observation signals followed
 by ``update_marginals!`` (``test/inference_engine_tests.jl:348-351,469-472``)
-— synchronous and single-threaded.  The TPU pattern: keep the filtering
+— synchronous and single-threaded.  The accelerator pattern: keep the filtering
 posterior on device as carried state, and exploit JAX's asynchronous dispatch
 to overlap the host transfer of chunk *i+1* with the device computation of
 chunk *i* (double buffering): ``device_put`` of the next chunk is enqueued

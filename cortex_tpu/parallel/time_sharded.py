@@ -9,7 +9,7 @@ the chain's message passing is reformulated as an associative scan (see
 1. each device runs a **local** associative scan over its time block,
 2. the per-block combined elements (one small 5-tuple per device) are
    exchanged with a single ``all_gather`` over the ``time`` mesh axis — this
-   is the *only* cross-chip traffic, riding ICI; no halo exchange loops,
+   is the *only* cross-device traffic; no halo exchange loops,
 3. each device folds the exclusive prefix of the other blocks' elements into
    its local scan.
 
@@ -27,6 +27,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
+
+from ..utils import float32_matmuls
 
 from ..ops.chains import (
     ChainMarginals,
@@ -187,6 +189,7 @@ def lgssm_smooth_time_sharded(
     return ChainMarginals(mean, var)
 
 
+@float32_matmuls
 def mv_lgssm_smooth_time_sharded(
     y: jax.Array,
     A: jax.Array,
@@ -219,10 +222,8 @@ def mv_lgssm_smooth_time_sharded(
     of per-step lane-major m-system solves in the element build.
 
     The lane-major element algebra shares the blocked path's d-crossover
-    (its combine does d³ per-lane VPU work — ``MvLGSSM.auto_method``):
-    past d ≈ 8 a standard-layout per-device fold would win; at the
-    BASELINE d ≤ 8 shapes this per-device program matches the measured
-    single-chip best (BENCH_DETAIL.json ``ladder.mv_lgssm``).
+    (its combine does d³ elementwise work — ``MvLGSSM.auto_method``):
+    past d ≈ 8 a standard-layout per-device fold would win.
     """
     from ..ops.chains_mv import (
         MvChainMarginals,
@@ -358,9 +359,8 @@ def mv_lgssm_smooth_time_sharded(
             return _SElem(I[:, :, None] + zdd, zd, zdd)
 
         # Local block total via a SEQUENTIAL fold — O(Tb) work, one combine
-        # instance in the HLO (the local associative_scan this replaced ran
-        # O(Tb log Tb) combines as an unrolled tiny-op network, measured
-        # 65x the sequential scan single-chip, BENCH_r03/VERDICT r3 item 1).
+        # instance in the HLO (a local associative_scan would run
+        # O(Tb log Tb) combines as an unrolled tiny-op network).
         ident = _filter_identity_like(b1)
         block_total = _lseq_filter_total(elems, ident)
         gathered = lax.all_gather(block_total, time_axis)

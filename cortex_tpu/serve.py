@@ -1,20 +1,21 @@
 """Serving layer: AOT compilation, portable executables, bucketed batching.
 
 The reference stops at a library API (no serving story,
-`/root/reference/docs/src/index.md`); a production TPU deployment needs
-three more things, all XLA-shaped:
+`/root/reference/docs/src/index.md`); a production deployment needs three
+more things, all XLA-shaped:
 
 - **Ahead-of-time compilation** (:func:`aot_compile`): trace + lower + compile
-  once at deploy time, so the first request doesn't pay the 20–40 s XLA
-  compile.  The wrapper exposes XLA's own FLOP/memory cost model for
-  capacity planning.
+  once at deploy time, so the first request doesn't pay the XLA compile.
+  The wrapper exposes XLA's own FLOP/memory cost model for capacity
+  planning.
 - **Portable serialized executables** (:func:`export_serialized` /
   :func:`load_serialized`): `jax.export` StableHLO payloads that ship to a
-  serving fleet without the Python model code.
+  serving fleet without the Python model code (serializing needs the
+  ``flatbuffers`` package).
 - **Shape-bucketed serving** (:class:`BucketedServer`): ragged request
   batches are padded up to a small set of power-of-two buckets so XLA sees a
-  handful of static shapes instead of one compile per batch size — the
-  standard TPU serving discipline (dynamic shapes can't tile onto the MXU).
+  handful of static shapes instead of one compile per batch size (XLA
+  compiles static shapes only).
 
 Plus :func:`enable_persistent_cache` to carry compiled artifacts across
 process restarts.

@@ -2,7 +2,27 @@
 
 from __future__ import annotations
 
-__all__ = ["format_time_ns"]
+import functools
+
+import jax
+
+__all__ = ["format_time_ns", "float32_matmuls"]
+
+
+def float32_matmuls(fn):
+    """Trace ``fn`` with every default-precision matmul in full float32.
+
+    On a GPU, XLA may run a float32 ``dot`` in TF32, which keeps about three
+    decimal digits: enough to move a d x d Kalman recursion's means by 4e-4
+    of their scale.  Explicit ``precision=`` arguments inside ``fn`` win.
+    """
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def format_time_ns(t: float) -> str:

@@ -1,6 +1,6 @@
 """Dependency-graph visualization: render signals and schedules to DOT.
 
-The TPU-native counterpart of the reference's GraphViz extension
+The counterpart of the reference's GraphViz extension
 (``/root/reference/ext/GraphVizExt/GraphVizExt.jl:293-444``): node color
 encodes computed (light yellow) / pending (light blue) state, edge style
 encodes weak (dashed) / intermediate (gray) / fresh (blue), traversal is

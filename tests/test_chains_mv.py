@@ -139,7 +139,7 @@ def test_mv_lgssm_model_wrapper():
 
 
 def test_solve_small_matches_numpy_lu():
-    """The unrolled Gauss-Jordan solve (TPU-native replacement for the LU
+    """The unrolled Gauss-Jordan solve (replacement for the LU
     custom call, ops/chains_mv.py::_solve_small) must match numpy on batched
     systems, including matrices whose naive pivot is zero (forces the
     partial-pivoting row swaps)."""
@@ -192,7 +192,7 @@ def test_mv_matmul_operator_matches_scan():
 
 # ---------------------------------------------------------------------------
 # Blocked two-level scan (mv_lgssm_smooth_blocked) — the single-chip form of
-# the time-sharded scheme (VERDICT r3 item 1).
+# the time-sharded scheme.
 
 
 @pytest.mark.parametrize("d,m", [(2, 1), (3, 2), (4, 4)])
@@ -283,7 +283,7 @@ def test_lane_major_algebra_matches_reference_layout():
     """The lane-major combines (leaves (..., d, d, R)) must stay in exact
     lockstep with the (..., d, d)-minor reference algebra — they are two
     layouts of the same Särkkä elements (the lane-major one is the hot
-    path; measured 35× on a v5e combine fold)."""
+    path)."""
     from cortex_tpu.ops.chains_mv import (
         _combine,
         _Elem,

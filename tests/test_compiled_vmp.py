@@ -111,8 +111,7 @@ def test_compiled_vmp_matches_dynamic_fixed_point():
 def test_no_unschedulable_warning_on_canonical_vmp_model():
     """Frozen observed-y marginals are intentional reads; compiling the
     canonical mean-field SSM must NOT emit the unschedulable-target warning
-    (it previously cried wolf on every correct VMP model — VERDICT r2 weak
-    item 4)."""
+    (it previously cried wolf on every correct VMP model)."""
     import warnings as _warnings
 
     rng = np.random.default_rng(5)

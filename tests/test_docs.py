@@ -59,24 +59,17 @@ def test_docs_html_build(tmp_path, monkeypatch):
 def test_bench_generated_regions_match_artifact():
     """Every numeric benchmark claim inside a bench-generated region must
     equal what tools/gen_bench_docs.py renders from the committed
-    BENCH_DETAIL.json — docs cannot drift from the artifact of record
-    (VERDICT r4 item 5)."""
+    BENCH_DETAIL.json — or, with no artifact, the not-measured text."""
     import importlib.util
-    import json
     import pathlib
 
     repo = pathlib.Path(__file__).resolve().parents[1]
-    detail_path = repo / "BENCH_DETAIL.json"
-    assert detail_path.exists(), (
-        "BENCH_DETAIL.json missing — run `python bench.py` (it is the "
-        "committed artifact the docs tables are generated from)"
-    )
     spec = importlib.util.spec_from_file_location(
         "gen_bench_docs", repo / "tools" / "gen_bench_docs.py"
     )
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    detail = json.loads(detail_path.read_text())
+    detail = mod.load_detail()
     rendered = mod.rendered_files(detail)
     assert rendered, "no bench-generated regions found in docs/"
     stale = [
@@ -87,3 +80,9 @@ def test_bench_generated_regions_match_artifact():
         f"docs drifted from BENCH_DETAIL.json in {stale}; run "
         "`python tools/gen_bench_docs.py`"
     )
+    if detail is None:
+        for rel in rendered:
+            text = (repo / rel).read_text()
+            for mo in mod._REGION.finditer(text):
+                if mo.group("name") in mod.RENDERERS:
+                    assert mo.group("body") == mod.NOT_MEASURED, (rel, mo)

@@ -164,7 +164,7 @@ def test_binary_hgf_batched_and_step_agree():
 
 
 def test_hgf_pallas_filter_matches_scan():
-    """The fused VMEM-resident kernel (ops/pallas_hgf.py) must reproduce the
+    """The fused Triton kernel (ops/pallas_hgf.py) must reproduce the
     lax.scan filter exactly (interpret mode on CPU), including the guard
     semantics, across a non-tile-aligned replica count."""
     import numpy as np
@@ -178,7 +178,7 @@ def test_hgf_pallas_filter_matches_scan():
         jnp.float32,
     )
     fs, ts = hgf.filter(u)
-    fp, tp = hgf.filter(u, method="pallas")
+    fp, tp = hgf.filter(u, method="pallas", interpret=True)
     for name in ("mu1", "pi1", "mu2", "pi2", "prediction_error"):
         np.testing.assert_allclose(
             np.asarray(getattr(ts, name)),
@@ -203,7 +203,7 @@ def test_hgf_pallas_rejects_bad_shapes():
 
 
 def test_hgf_pallas_track_selection():
-    """Opt-in trajectory tracks (VERDICT r3 item 6): finals always exact,
+    """Opt-in trajectory tracks: finals always exact,
     unrequested tracks come back as None, requested subset matches scan."""
     import numpy as np
     import jax.numpy as jnp
@@ -217,7 +217,7 @@ def test_hgf_pallas_track_selection():
     )
     fs, ts = hgf.filter(u)  # full scan reference
     # Filtering-only: no tracks at all.
-    f0, t0 = hgf.filter(u, method="pallas", tracks=())
+    f0, t0 = hgf.filter(u, method="pallas", tracks=(), interpret=True)
     for name in ("mu1", "pi1", "mu2", "pi2"):
         np.testing.assert_allclose(
             np.asarray(getattr(f0, name)),
@@ -228,7 +228,8 @@ def test_hgf_pallas_track_selection():
     assert all(v is None for v in t0)
     # Subset through BOTH methods.
     for method in ("scan", "pallas"):
-        f2, t2 = hgf.filter(u, method=method, tracks=("mu1", "mu2"))
+        f2, t2 = hgf.filter(u, method=method, tracks=("mu1", "mu2"),
+                            interpret=True)
         np.testing.assert_allclose(
             np.asarray(t2.mu1), np.asarray(ts.mu1), atol=1e-5
         )
@@ -250,9 +251,9 @@ def test_hgf_pallas_bf16_track_io():
         np.random.default_rng(6).normal(size=(9, 32)).cumsum(-1) * 0.2,
         jnp.float32,
     )
-    fin32, (mu1_32,) = hgf_filter_pallas(u, tracks=("mu1",))
+    fin32, (mu1_32,) = hgf_filter_pallas(u, tracks=("mu1",), interpret=True)
     fin16, (mu1_16,) = hgf_filter_pallas(
-        u, tracks=("mu1",), track_dtype=jnp.bfloat16
+        u, tracks=("mu1",), track_dtype=jnp.bfloat16, interpret=True
     )
     assert mu1_16.dtype == jnp.bfloat16
     np.testing.assert_allclose(
@@ -270,51 +271,45 @@ def test_hgf_pallas_guards():
     from cortex_tpu.ops.pallas_hgf import hgf_filter_pallas
 
     with pytest.raises(ValueError, match="unknown tracks"):
-        hgf_filter_pallas(jnp.zeros((4, 8)), tracks=("mu1", "bogus"))
-    # VMEM guard: T so long even tile=128 with all five tracks cannot fit.
-    with pytest.raises(ValueError, match="VMEM"):
-        hgf_filter_pallas(jnp.zeros((4, 1 << 16)))
+        hgf_filter_pallas(jnp.zeros((4, 8)), tracks=("mu1", "bogus"),
+                          interpret=True)
+    with pytest.raises(ValueError, match="power of two"):
+        hgf_filter_pallas(jnp.zeros((4, 8)), tile=48, interpret=True)
     # Traced parameters must fail loudly, pointing at method='scan'.
     import jax
 
     def f(om):
-        return hgf_filter_pallas(jnp.zeros((4, 8)), omega=om)[0][0]
+        return hgf_filter_pallas(jnp.zeros((4, 8)), omega=om,
+                                 interpret=True)[0][0]
 
     with pytest.raises(ValueError, match="scan"):
         jax.jit(f)(jnp.float32(-2.0))
 
 
-def test_pallas_filter_only_sublane_parity_and_fallback():
-    """The tracks=() fast path (sublane-major kernel) must match the scan
-    filter exactly through its relayout + padding, and very long T must
-    fall back to the row-major kernel rather than blow VMEM."""
+@pytest.mark.parametrize("tracks", [(), ("mu2",), ("delta1", "mu1", "pi2")])
+def test_hgf_pallas_replica_padding_and_track_layouts(tracks):
+    """Replica counts off the block are padded and trimmed; filter-only runs
+    the natural (R, T) layout, requested tracks the time-major one, and both
+    match the scan exactly (order of requested tracks preserved)."""
     import numpy as np
 
     from cortex_tpu.models import HGF
-    from cortex_tpu.ops.pallas_hgf import hgf_filter_pallas
+    from cortex_tpu.ops.pallas_hgf import ALL_TRACKS, hgf_filter_pallas
 
-    rng = np.random.default_rng(0)
-    hgf = HGF()
-    # n deliberately NOT a multiple of the auto tile; T not a lane multiple.
     u = jnp.asarray(
-        rng.normal(size=(700, 48)).cumsum(axis=-1) * 0.1, jnp.float32
+        np.random.default_rng(0).normal(size=(37, 48)).cumsum(-1) * 0.1,
+        jnp.float32,
     )
-    finals, tracks = hgf_filter_pallas(u, tracks=())
-    assert tracks == ()
-    ref, _ = hgf.filter(u, method="scan")
-    for got, want in zip(finals, ref):
-        np.testing.assert_allclose(
-            np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5
-        )
-
-    # T=2048: auto sublane tile would be < 1024 -> row-major fallback path
-    # (still correct, still filter-only).
-    u_long = jnp.asarray(
-        rng.normal(size=(16, 2048)).cumsum(axis=-1) * 0.05, jnp.float32
-    )
-    finals_long, _ = hgf_filter_pallas(u_long, tracks=())
-    ref_long, _ = hgf.filter(u_long, method="scan")
-    np.testing.assert_allclose(
-        np.asarray(finals_long[0]), np.asarray(ref_long.mu1),
-        rtol=1e-4, atol=1e-4,
-    )
+    finals, values = hgf_filter_pallas(u, tracks=tracks, tile=32,
+                                       interpret=True)
+    ref_final, ref_traj = HGF().filter(u, method="scan")
+    assert len(values) == len(tracks)
+    for got, want in zip(finals, ref_final):
+        assert got.shape == (37,)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+    for name, got in zip(tracks, values):
+        want = ref_traj[ALL_TRACKS.index(name)]
+        assert got.shape == u.shape
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)

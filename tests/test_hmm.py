@@ -208,7 +208,8 @@ def test_fit_vmp_pooled_and_pallas_agree():
     )
     assert r_scan.state.trans_alpha.shape == (2, 2)  # one shared posterior
     r_pallas = model.fit_vmp(
-        jnp.asarray(ys), n_symbols=2, n_iterations=15, pooled=True, method="pallas"
+        jnp.asarray(ys), n_symbols=2, n_iterations=15, pooled=True,
+        method="pallas", interpret=True,
     )
     np.testing.assert_allclose(
         np.asarray(r_scan.state.trans_alpha),
@@ -245,7 +246,8 @@ def test_smooth_pallas_matches_scan():
     model = HMM(K=K, log_pi=jnp.log(jnp.full(K, 1.0 / K)))
 
     ref = model.smooth(log_lik, jnp.log(jnp.asarray(A)))
-    pal = model.smooth(log_lik, jnp.log(jnp.asarray(A)), method="pallas")
+    pal = model.smooth(log_lik, jnp.log(jnp.asarray(A)), method="pallas",
+                       interpret=True)
     np.testing.assert_allclose(
         np.exp(np.asarray(pal.log_gamma)),
         np.exp(np.asarray(ref.log_gamma)),

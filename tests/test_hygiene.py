@@ -31,6 +31,7 @@ MODULES = [
     "cortex_tpu.ops.free_energy",
     "cortex_tpu.ops.pallas_kernels",
     "cortex_tpu.ops.pallas_hmm",
+    "cortex_tpu.ops.pallas_hgf",
     "cortex_tpu.ops.nonlinear",
     "cortex_tpu.ops.ep",
     "cortex_tpu.ops.cvi",

@@ -271,7 +271,7 @@ def test_hmm_fit_vmp_tolerates_missing():
 
 
 # ---------------------------------------------------------------------------
-# Per-component missingness (VERDICT r4 item 4): dense float64
+# Per-component missingness: dense float64
 # information-form oracle — no filtering code shared with the paths under
 # test.  A NaN in ONE component must keep the other components' information.
 # ---------------------------------------------------------------------------

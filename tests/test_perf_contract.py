@@ -4,8 +4,8 @@ The reference pins two performance contracts inside its TEST suite:
 ``@allocated isa_variant(...) == 0`` and JET ``@test_opt`` on
 ``update_marginals!`` and the core signal ops
 (``/root/reference/test/inference_engine_tests.jl:29-30,353-355``,
-``test/signal_tests.jl:790-832,1084-1114``).  The Python/TPU analogues
-(VERDICT r3 item 8):
+``test/signal_tests.jl:790-832,1084-1114``).  The Python/compiled analogues
+:
 
 1. **Zero-allocation hot ops on the native (C++) path** — ``is_pending`` /
    ``set_value`` / ``isa_variant`` on a ``NativeSignal`` must not allocate

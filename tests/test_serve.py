@@ -2,7 +2,7 @@
 cache, bucketed batching.
 
 No reference counterpart (the reference is a library with no deployment
-story); this pins the TPU-production subsystem: compiled executables must be
+story); this pins the production subsystem: compiled executables must be
 bit-identical to `jit`, serialized payloads must survive a roundtrip, and
 the bucket ladder must bound the number of XLA programs.
 """

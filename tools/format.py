@@ -37,8 +37,7 @@ _URL_RE = re.compile(r"https?://\S+")
 
 def _url_overflows(line: str) -> bool:
     """True iff a URL token itself extends past the column limit — the only
-    legitimate long-line exemption (ADVICE r4: a bare substring test on
-    'http' silently passed any over-long line mentioning e.g. 'httpx')."""
+    legitimate long-line exemption."""
     return any(m.end() > MAX_COLS for m in _URL_RE.finditer(line))
 
 # Stdlib top-level module names actually imported anywhere in this repo —

@@ -14,7 +14,7 @@ untyped codebase, by combining **static call sites** (``ast``) with
 * **call-kwarg**   — a call passes a keyword the callee doesn't accept.
 * **bad-annotation** — ``typing.get_type_hints`` fails on a public
   function/class of the package (stale or misspelled annotation —
-  otherwise unverified decoration, VERDICT r2 missing #5).
+  otherwise unverified decoration).
 
 Soundness stance: **zero false positives over completeness**.  A call is
 only checked when the callee resolves *unambiguously* to a callable whose
